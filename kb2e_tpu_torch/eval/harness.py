@@ -1,0 +1,253 @@
+"""Link-prediction evaluation harness (counterpart of ``kb2e_tpu/eval/harness.py``).
+
+Reproduces ``EmbeddingEvaluation::run`` (``common/evaluation.cpp:181-251``):
+for every test triple, rank the true head and the true tail against all
+entities (self included, ranks 1-based — quirk B9), and report raw and
+filtered MeanRank and Hits@10 averaged over ``2·|test|`` corruptions.
+
+Where ``kb2e_tpu`` runs the whole eval as one ``lax.scan``, this harness
+uploads the query feed to the device once, runs a Python loop over the
+batches (each one rank-count kernel launch plus a few small tensor ops), and
+fetches all ranks once at the end.  This slice covers models that score in
+the raw entity space (TransE); the per-relation projection groups of
+TransH/TransR, the clustered path, the mesh path and relation prediction
+come with the slices that port those models.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from kb2e_tpu_torch.config import EmbeddingConfig
+from kb2e_tpu_torch.constants import Distance
+from kb2e_tpu_torch.data.triples import Dataset
+from kb2e_tpu_torch.eval import ranking
+from kb2e_tpu_torch.models.base import Model, Params
+from kb2e_tpu_torch.utils.device import resolve_device
+
+
+class _FilterIndex:
+    """Sorted (anchor, relation) → candidate-entity index over the filter set.
+
+    One stable argsort over packed keys stands in for the reference's
+    known-good map build (common/evaluation.cpp:55-61).  Duplicate triples are
+    KEPT, in input order — the reference's vector push_back keeps them too and
+    the filtered correction counts per list element."""
+
+    def __init__(self, anchors: np.ndarray, rels: np.ndarray, values: np.ndarray, n_relations: int):
+        self._n_relations = int(n_relations)
+        keys = anchors.astype(np.int64) * self._n_relations + rels.astype(np.int64)
+        order = np.argsort(keys, kind="stable")
+        self._keys = keys[order]
+        self._values = values.astype(np.int32)[order]
+
+    def lookup(self, anchors: np.ndarray, rels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-query [lo, hi) segment bounds into the sorted value array."""
+        q = anchors.astype(np.int64) * self._n_relations + rels.astype(np.int64)
+        return (
+            np.searchsorted(self._keys, q, side="left"),
+            np.searchsorted(self._keys, q, side="right"),
+        )
+
+    @property
+    def values(self) -> np.ndarray:
+        """The sorted candidate array `lookup` bounds index into."""
+        return self._values
+
+
+def _round_up_pow2(x: int, lo: int = 8) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return n
+
+
+class EvalAccumulator:
+    """Accumulates the reference's four counters (common/evaluation.cpp:188-192)
+    plus the standard extended KGE metrics (MRR, Hits@1/3)."""
+
+    _HITS_KS = (1, 3, 10)
+
+    def __init__(self):
+        self.raw_sum_rank = 0
+        self.filtered_sum_rank = 0
+        self.raw_sum_recip = 0.0
+        self.filtered_sum_recip = 0.0
+        self.raw_hits = {k: 0 for k in self._HITS_KS}
+        self.filtered_hits = {k: 0 for k in self._HITS_KS}
+        self.n = 0
+
+    def add(self, raw_ranks: np.ndarray, filtered_ranks: np.ndarray) -> None:
+        self.raw_sum_rank += int(raw_ranks.sum())
+        self.filtered_sum_rank += int(filtered_ranks.sum())
+        self.raw_sum_recip += float((1.0 / raw_ranks.astype(np.float64)).sum())
+        self.filtered_sum_recip += float((1.0 / filtered_ranks.astype(np.float64)).sum())
+        for k in self._HITS_KS:
+            self.raw_hits[k] += int((raw_ranks <= k).sum())
+            self.filtered_hits[k] += int((filtered_ranks <= k).sum())
+        self.n += int(raw_ranks.shape[0])
+
+    def metrics(self) -> Dict[str, float]:
+        n = max(self.n, 1)
+        out = {
+            "raw_mean_rank": self.raw_sum_rank / n,
+            "filtered_mean_rank": self.filtered_sum_rank / n,
+            "raw_hits10": self.raw_hits[10] / n,
+            "filtered_hits10": self.filtered_hits[10] / n,
+            "raw_mrr": self.raw_sum_recip / n,
+            "filtered_mrr": self.filtered_sum_recip / n,
+            "num_corruptions": self.n,
+        }
+        for k in self._HITS_KS[:-1]:
+            out[f"raw_hits{k}"] = self.raw_hits[k] / n
+            out[f"filtered_hits{k}"] = self.filtered_hits[k] / n
+        return out
+
+
+def rank_all(
+    model: Model,
+    params: Params,
+    dataset: Dataset,
+    cfg: EmbeddingConfig,
+    *,
+    test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(raw, filtered) int32 ranks of every query, in query order: per test
+    triple, corrupt-head then corrupt-tail (common/evaluation.cpp:230-238)."""
+    dev = resolve_device(device)
+    if cfg.eval_impl not in ("auto", "pallas"):
+        raise ValueError(
+            f"eval_impl={cfg.eval_impl!r}: the port has one ranking sweep, the rank-count "
+            "kernel; use 'auto' (or 'pallas')"
+        )
+    if model.needs_projection:
+        raise NotImplementedError(f"{model.name}: per-relation projected evaluation is not ported yet")
+    if test_triples is None:
+        test_triples = dataset.test
+    if test_triples is None or test_triples[0].size == 0:
+        raise ValueError("no test triples to evaluate")
+    # Low-precision training tables are upcast once here; ranking sweeps
+    # always score in float32.
+    params = {
+        k: v.to(device=dev, dtype=torch.float32) if v.is_floating_point() else v.to(dev)
+        for k, v in params.items()
+    }
+    th, tt, tr = (np.asarray(a, dtype=np.int64) for a in test_triples)
+
+    # Filter set = train + valid + test (common/evaluation.cpp:55-61).
+    parts = [(dataset.train.heads, dataset.train.tails, dataset.train.rels)]
+    for split in (dataset.valid, test_triples):
+        if split is not None:
+            parts.append(split)
+    fh, ft, fr = (np.concatenate([np.asarray(p[i]) for p in parts]) for i in range(3))
+    # (h, r) → known tails and (t, r) → known heads.
+    tails_of_hr = _FilterIndex(fh, fr, ft, dataset.n_relations)
+    heads_of_tr = _FilterIndex(ft, fr, fh, dataset.n_relations)
+
+    distance = model.effective_distance(Distance.from_any(cfg.distance))
+    block_size = cfg.eval_block_size
+    batch_size = cfg.eval_batch_size
+
+    # The query list: per test triple, corrupt-head then corrupt-tail.
+    # corrupt-head: q = proj[t] − r, true = h, filters = heads of (t, r).
+    # corrupt-tail: q = proj[h] + r, true = t, filters = tails of (h, r).
+    n_test = th.shape[0]
+    n_query = 2 * n_test
+    q_rel = np.repeat(tr, 2)
+    q_anchor = np.empty(n_query, dtype=np.int64)
+    q_anchor[0::2], q_anchor[1::2] = tt, th
+    q_sign = np.empty(n_query, dtype=np.float32)
+    q_sign[0::2], q_sign[1::2] = -1.0, 1.0
+    q_true = np.empty(n_query, dtype=np.int64)
+    q_true[0::2], q_true[1::2] = th, tt
+    # Filter-list segment bounds; odd slots index the tails partition, which
+    # follows the heads partition in the flat candidate array.
+    q_lo = np.empty(n_query, dtype=np.int64)
+    q_hi = np.empty(n_query, dtype=np.int64)
+    q_lo[0::2], q_hi[0::2] = heads_of_tr.lookup(tt, tr)
+    q_lo[1::2], q_hi[1::2] = tails_of_hr.lookup(th, tr)
+    q_count = q_hi - q_lo
+    q_lo[1::2] += heads_of_tr.values.shape[0]
+    filt_vals = np.concatenate([heads_of_tr.values, tails_of_hr.values])
+
+    # The feed is padded to whole batches; pad slots rank query 0 and are
+    # dropped after the fetch.
+    n_batches = -(-n_query // batch_size)
+    n_slot = n_batches * batch_size
+
+    def upload(a: np.ndarray, dtype) -> torch.Tensor:
+        padded = np.zeros(n_slot, dtype=dtype)
+        padded[:n_query] = a
+        return torch.from_numpy(padded).to(dev)
+
+    feed = dict(
+        q_anchor=upload(q_anchor, np.int32),
+        q_sign=upload(q_sign, np.float32),
+        q_rel=upload(q_rel, np.int32),
+        q_true=upload(q_true, np.int32),
+        q_lo=upload(q_lo, np.int32),
+        q_count=upload(q_count, np.int32),
+        filt_vals=torch.from_numpy(filt_vals.astype(np.int32)).to(dev),
+    )
+    kmax = _round_up_pow2(int(q_count.max(initial=1)))
+
+    proj = params["entity"]
+    proj_t = proj.T.contiguous()
+    raws = torch.empty((n_batches, batch_size), dtype=torch.int32, device=dev)
+    filts = torch.empty_like(raws)
+    for i in range(n_batches):
+        raws[i], filts[i] = ranking.rank_feed_queries(
+            proj, proj_t, params["relation"], **feed,
+            start=i * batch_size, distance=distance, block_size=block_size,
+            batch=batch_size, kmax=kmax,
+        )
+    return raws.reshape(-1)[:n_query].cpu().numpy(), filts.reshape(-1)[:n_query].cpu().numpy()
+
+
+def evaluate(
+    model: Model,
+    params: Params,
+    dataset: Dataset,
+    cfg: EmbeddingConfig,
+    *,
+    test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    verbose: bool = False,
+    device="cuda",
+) -> Dict[str, float]:
+    """Run filtered/raw link prediction on ``device``; returns the metrics."""
+    raw, filt = rank_all(model, params, dataset, cfg, test_triples=test_triples, device=device)
+    acc = EvalAccumulator()
+    # Batch by batch, as kb2e_tpu adds them, so the float sums agree bit for bit.
+    b = cfg.eval_batch_size
+    for s in range(0, raw.shape[0], b):
+        acc.add(raw[s : s + b], filt[s : s + b])
+    if verbose:
+        print(f"\rProcessed {100.0:05.2f}% ...")
+    return acc.metrics()
+
+
+def print_reference_style(metrics: Dict[str, float]) -> None:
+    """Print the reference's final two lines (common/evaluation.cpp:247-250)."""
+    print(
+        f"Raw      -- Rank: {metrics['raw_mean_rank']:f}, "
+        f"Hits@10: {metrics['raw_hits10']:f}"
+    )
+    print(
+        f"Filtered -- Rank: {metrics['filtered_mean_rank']:f}, "
+        f"Hits@10: {metrics['filtered_hits10']:f}"
+    )
+
+
+def print_extended(metrics: Dict[str, float]) -> None:
+    """Extended metrics beyond the reference's surface (MRR, Hits@1/3),
+    printed after the two reference-format lines."""
+    for label, pre in (("Raw", "raw"), ("Filtered", "filtered")):
+        print(
+            f"{label} extended -- MRR: {metrics[f'{pre}_mrr']:.6f}, "
+            f"Hits@1: {metrics[f'{pre}_hits1']:.6f}, "
+            f"Hits@3: {metrics[f'{pre}_hits3']:.6f}"
+        )
