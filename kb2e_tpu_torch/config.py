@@ -59,7 +59,9 @@ class EmbeddingConfig:
     projection_max_iters: int = 16
     # Row-update scatter lowering: 'direct' or 'dedup' (training).
     scatter_mode: str = "direct"
-    # Parity-mode implementation: 'auto', 'scan' or 'pallas' (training).
+    # Parity-mode implementation.  The port has one, the hand-written
+    # sequential-update kernel (its plain version on CPU tensors): 'auto' and
+    # 'pallas' both select it; 'scan' is refused on the card (training).
     parity_impl: str = "auto"
     # Diagnostic ablation of the TPU package's TransR chunk pipeline; kept so
     # configs round-trip, never read here.

@@ -13,7 +13,9 @@ Reference semantics reproduced here:
 
 Triples are host-side struct-of-arrays int32; the modules that need them on
 the card move them there.  The cuckoo membership index of the training
-sampler, and the C++ fast loader, come with the training slice.
+sampler is built by the trainer (``train/step.py::DeviceData``), not when the
+set is made, so loading for evaluation does not pay for it.  The C++ fast
+loader is not ported yet.
 """
 
 from __future__ import annotations

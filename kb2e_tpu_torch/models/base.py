@@ -7,18 +7,22 @@ virtual-hook surface (``common/trainer.h:58-77``):
 * ``init_params``        ≙ prepTrain's init + normalise
   (common/trainer.cpp:34-58 plus model extensions)
 * ``energy``             ≙ tripleEnergy
+* ``batch_update``       ≙ one reference *batch* of gradientUpdate calls,
+  vectorised: reads the batch-start snapshot, accumulates all margin-violating
+  updates with scatter-adds, then applies the constraint projections once
+  (fast mode).
+* ``sequential_update``  ≙ the exact double-buffered per-sample semantics
+  (transe/trainer.cpp:25-56) — the parity path, a hand-written kernel on
+  the card.
 * ``project_entities`` / ``relation_vector`` — the evaluation hooks: every
   Trans* model evaluates as a distance sweep in a per-relation projected
   space (see kb2e_tpu_torch/ops/distances.py).
-
-The training hooks (``batch_update``, ``sequential_update``) come with the
-training slice.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,6 +31,13 @@ from kb2e_tpu_torch.constants import Distance
 
 Params = Dict[str, torch.Tensor]
 
+# A sampled training batch (``kb2e_tpu.models.base.Batch``, here a plain
+# dict).  Keys, all [B] int32 unless noted: ``ph pt r`` the positive triple,
+# ``nh nt`` the corrupted triple (same relation), ``valid`` bool [B] — False
+# marks samples whose corruption could not be certified negative within the
+# resampling budget; they are masked out of the loss and the update.
+Batch = Dict[str, torch.Tensor]
+
 
 class Model(abc.ABC):
     name: str
@@ -34,6 +45,12 @@ class Model(abc.ABC):
     uses_distance_flag: bool = True
     # True if evaluation needs a per-relation projection of the entity table.
     needs_projection: bool = False
+    # False for models with no reference binary to be faithful to (CTransR,
+    # PTransE): their parity mode is the vectorised update.
+    has_parity_mode: bool = True
+    # True if the fast epoch can run over one fused [N+R, k] table
+    # (``fuse_params`` / ``fused_table_update`` / ``unfuse_params``).
+    supports_fused_table: bool = False
 
     @abc.abstractmethod
     def init_params(
@@ -51,6 +68,14 @@ class Model(abc.ABC):
         self, params: Params, h: torch.Tensor, t: torch.Tensor, r: torch.Tensor, distance: Distance
     ) -> torch.Tensor:
         """Batched triple energy, always computed fresh (fixes quirk B1)."""
+
+    @abc.abstractmethod
+    def batch_update(self, params: Params, batch: Batch, cfg: EmbeddingConfig) -> Tuple[Params, torch.Tensor]:
+        """Vectorised margin-ranking SGD step; returns (params, batch loss)."""
+
+    @abc.abstractmethod
+    def sequential_update(self, params: Params, batch: Batch, cfg: EmbeddingConfig) -> Tuple[Params, torch.Tensor]:
+        """Reference-exact per-sample update of one batch; returns (params, batch loss)."""
 
     # --- evaluation hooks -------------------------------------------------
     def project_entities(self, params: Params, rel: int) -> torch.Tensor:

@@ -1,0 +1,64 @@
+"""Builds the hand-written CUDA kernels of ``csrc/`` with ``nvcc``.
+
+Each source is compiled on its own, for ``sm_90a``, into a shared library
+with a plain C interface that the kernel's wrapper loads with ``ctypes``.
+The library lands in ``build/kernels/`` at the root of the checkout, at first
+use, under a name that carries a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is not.  nvcc's output, with
+ptxas's register and spill report for each kernel, is kept beside the
+library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",  # -v: ptxas reports each kernel's registers and spills
+    "-v",
+)
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(source: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Where the build of ``source`` with the current flags lives."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir / f"{source.stem}_{digest}.so"
+
+
+def build(source: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``source`` unless this source is built already; returns the library."""
+    so = library_path(source, build_dir)
+    if so.exists():
+        return so
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return so

@@ -12,9 +12,8 @@ itself; no 1e30 pad rows reach it.
 
 * On a CUDA tensor :func:`rank_counts` launches the kernel of
   ``csrc/rank_count.cu`` (L1 and L2 templates of one kernel; what bounds it
-  and how it is built is noted in that file), or raises.  The kernel is
-  compiled with ``nvcc`` for ``sm_90a`` at first use, into ``build/kernels/``
-  at the root of the checkout, and bound with ``ctypes``.
+  is noted in that file), or raises.  The kernel is compiled by
+  :mod:`kb2e_tpu_torch.ops.cuda_build` at first use and bound with ``ctypes``.
 * On a CPU tensor it runs :func:`rank_counts_reference`, the plain PyTorch
   version: the blockwise sweep of ``ranking.rank_queries``, summing over k
   in the kernel's order.
@@ -28,30 +27,16 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from kb2e_tpu_torch.constants import Distance
-from kb2e_tpu_torch.ops import distances
+from kb2e_tpu_torch.ops import cuda_build, distances
 
 KERNEL_NAMES = {Distance.L1: "rank_count_l1", Distance.L2: "rank_count_l2"}
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rank_count.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",  # -v: ptxas reports each kernel's registers and spills
-    "-v",
-)
+SOURCE = cuda_build.CSRC / "rank_count.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
 
 # Kernel launches by kernel name, added to only where a kernel is launched.
 launch_counts: collections.Counter = collections.Counter()
@@ -61,41 +46,9 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the rank-count kernel cannot be built")
-    return found
-
-
-def library_path() -> Path:
-    """Where the build of the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"rank_count_{digest}.so"
-
-
 def build() -> Path:
-    """Compile ``csrc/rank_count.cu`` unless this source is built already.
-
-    nvcc's output, with ptxas's register and spill report for each kernel,
-    is kept beside the library as ``.log``.
-    """
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    """Compile ``csrc/rank_count.cu`` into ``BUILD_DIR`` unless it is built already."""
+    return cuda_build.build(SOURCE, BUILD_DIR)
 
 
 @functools.cache

@@ -1,0 +1,110 @@
+"""Epoch loop.
+
+Counterpart of ``kb2e_tpu/train/loop.py``.  Mirrors the observable behaviour
+of ``Trainer::train`` / ``bfgs`` (``common/trainer.cpp:60-107``): init
+params, run ``max_epochs`` epochs of ``num_batches`` batches of
+``|T| // num_batches`` samples, print the per-epoch loss in the reference's
+format.  Adds JSONL metrics (loss, wall time, triples/s), periodic
+checkpoints with resume, and periodic link-prediction eval.
+
+All randomness — the initial tables and every sampled batch — comes from one
+``torch.Generator`` on the training device, seeded with
+``cfg.resolved_seed()``.  A checkpoint stores that generator's state, and
+resume restores it, where ``kb2e_tpu`` replays its key splits.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Optional
+
+import torch
+
+from kb2e_tpu_torch.config import EmbeddingConfig
+from kb2e_tpu_torch.data.triples import TripleSet
+from kb2e_tpu_torch.io import checkpoint as ckpt_lib
+from kb2e_tpu_torch.models.base import Model, Params
+from kb2e_tpu_torch.train import step as step_lib
+from kb2e_tpu_torch.utils import logging as log_lib
+from kb2e_tpu_torch.utils.device import resolve_device
+
+
+def train(
+    model: Model,
+    cfg: EmbeddingConfig,
+    triples: TripleSet,
+    *,
+    metrics_fn: Optional[Callable[[dict], None]] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    eval_every: int = 0,
+    eval_fn: Optional[Callable[[Params], dict]] = None,
+    device="cuda",
+) -> Params:
+    """Train embeddings on ``device``; returns the final params.
+
+    ``update_mode`` 'fast' runs one presampled epoch per epoch
+    (:class:`step_lib.EpochRunner`); 'parity' samples each batch and applies
+    it with ``model.sequential_update``.
+    """
+    dev = resolve_device(device)
+    if cfg.update_mode not in ("fast", "parity"):
+        raise ValueError(f"update_mode={cfg.update_mode!r}; expected 'fast' or 'parity'")
+    generator = torch.Generator(device=dev).manual_seed(cfg.resolved_seed())
+    params = model.init_params(generator, triples.n_entities, triples.n_relations, cfg, dev)
+
+    start_epoch = 0
+    if resume and checkpoint_dir:
+        latest = ckpt_lib.latest_in(checkpoint_dir)
+        if latest is not None:
+            restored, start_epoch, meta = ckpt_lib.restore(latest)
+            params = {k: v.to(dev) for k, v in restored.items()}
+            generator.set_state(meta["generator_state"])
+            print(f"Resumed from {latest} at epoch {start_epoch}")
+
+    data = step_lib.DeviceData.from_triple_set(triples, dev)
+    batch_size = step_lib.batch_size_for(triples.num_triples, cfg.num_batches)
+    if cfg.update_mode == "fast":
+        run_epoch = step_lib.make_epoch_runner(model, cfg, batch_size, cfg.num_batches)
+    else:
+        run_step = step_lib.make_train_step(model, cfg, batch_size)
+
+    logger = log_lib.MetricsLogger(metrics_fn)
+    total_samples = batch_size * cfg.num_batches
+    for epoch in range(start_epoch, cfg.max_epochs):
+        t0 = time.perf_counter()
+        if cfg.update_mode == "fast":
+            params, loss = run_epoch(params, generator, data)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for _ in range(cfg.num_batches):
+                params, batch_loss = run_step(params, generator, data)
+                loss = loss + batch_loss
+        loss_val = float(loss)  # waits for the epoch
+        dt = time.perf_counter() - t0
+        # Reference epoch line (common/trainer.cpp:105).
+        print(f"Epoch: {epoch}, Loss: {loss_val:f}")
+        logger.log(
+            {
+                "epoch": epoch,
+                "loss": loss_val,
+                "wall_s": dt,
+                "triples_per_s": total_samples / dt if dt > 0 else 0.0,
+                "batch_size": batch_size,
+            }
+        )
+        if checkpoint_dir and checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+            ckpt_lib.save(
+                os.path.join(checkpoint_dir, f"ckpt_{epoch + 1}"), params, step=epoch + 1,
+                extra={"generator_state": generator.get_state()},
+            )
+        if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
+            val = eval_fn(params)
+            print(
+                f"[valid @ epoch {epoch}] filtered MR {val.get('filtered_mean_rank', float('nan')):.1f}, "
+                f"filtered Hits@10 {val.get('filtered_hits10', float('nan')):.3f}"
+            )
+            logger.log({"epoch": epoch, **{f"valid_{k}": v for k, v in val.items()}})
+    return params
