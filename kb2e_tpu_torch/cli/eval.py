@@ -4,8 +4,8 @@ Analogue of ``evalTransE`` (``transe/bin/evalTransE.cpp:9-18``): load trained
 embeddings from ``--outdir``, rank every test triple's head and tail against
 all entities, print raw + filtered MeanRank and Hits@10 in the reference's
 exact format (``common/evaluation.cpp:247-250``).  Runs on ``--device``
-(default ``cuda``).  This slice carries the entity task for TransE; the
-relation task and the other models come with later slices.
+(default ``cuda``).  The port carries the entity task for TransE and TransH;
+the relation task and the other models come with later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from kb2e_tpu_torch.io import text as text_io
 from kb2e_tpu_torch.models import base as model_base
 from kb2e_tpu_torch.utils.device import resolve_device
 
-MODELS = ("transe",)
+MODELS = ("transe", "transh")
 
 
 def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device="cuda") -> dict:
@@ -44,15 +44,20 @@ def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device
 
     dataset = data_lib.load_dataset(cfg.data_dir, splits=("train", "valid", "test"))
     n_ent, n_rel, k = dataset.n_entities, dataset.n_relations, cfg.embedding_size
-    host = text_io.read_embeddings(cfg.output_dir, C.Method.from_any(cfg.method), n_ent, n_rel, k)
+    # TransH reads its hyperplane normals from weights.<tag>, one row per relation.
+    weights_shape = (n_rel, k) if model_name == "transh" else None
+    host = text_io.read_embeddings(
+        cfg.output_dir, C.Method.from_any(cfg.method), n_ent, n_rel, k, weights_shape=weights_shape
+    )
     bad = text_io.entity_norm_warnings(host["entity"])
     if bad:
         # Analogue of the "wrong_entity" warning (common/evaluation.cpp:99-102).
         print(f"Warning: {bad} entity rows exceed unit norm by >1e-3", file=sys.stderr)
 
-    params = params_from_numpy(
-        {name: host[name].astype("float32") for name in ("entity", "relation")}, dev
-    )
+    arrays = {name: host[name] for name in ("entity", "relation")}
+    if weights_shape is not None:
+        arrays["norm"] = host["weights"]
+    params = params_from_numpy({name: a.astype("float32") for name, a in arrays.items()}, dev)
     metrics = harness.evaluate(model, params, dataset, cfg, verbose=verbose, device=dev)
     harness.print_reference_style(metrics)
     harness.print_extended(metrics)

@@ -4,8 +4,8 @@
 is the analogue of the reference's ``trainTransE`` main
 (``transe/bin/trainTransE.cpp:9-20``): parse args, echo options, train,
 write reference-format embedding files.  Runs on ``--device`` (default
-``cuda``).  ``--model`` keeps the JAX package's choices; this slice trains
-TransE, and the other models raise until their slices land.
+``cuda``).  ``--model`` keeps the JAX package's choices; the port trains
+TransE and TransH, and the other models raise until their slices land.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from kb2e_tpu_torch.utils.device import resolve_device
 MODELS = ("transe", "transh", "transr", "ctransr", "ptranse")
 # Where each model not ported yet stands in ROADMAP.md's Queue 1.
 NOT_PORTED = {
-    "transh": "Queue 1 item 8 (TransH, kernel K4)",
     "transr": "Queue 1 item 9 (TransR, kernel K5; its TransE warm start with it)",
     "ctransr": "Queue 1 item 10 (CTransR)",
     "ptranse": "Queue 1 item 11 (PTransE)",
@@ -81,8 +80,10 @@ def run_training(
             logger.close()
 
     host = params_to_numpy({k: v.float() for k, v in params.items()})
+    # TransH's hyperplane normals go to weights.<tag>, one row per relation.
     text_io.write_embeddings(
-        cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"], model_name=model_name
+        cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
+        weights=host.get("norm"), model_name=model_name,
     )
     return params
 

@@ -8,15 +8,22 @@ filtered MeanRank and Hits@10 averaged over ``2·|test|`` corruptions.
 Where ``kb2e_tpu`` runs the whole eval as one ``lax.scan``, this harness
 uploads the query feed to the device once, runs a Python loop over the
 batches (each one rank-count kernel launch plus a few small tensor ops), and
-fetches all ranks once at the end.  This slice covers models that score in
-the raw entity space (TransE); the per-relation projection groups of
-TransH/TransR, the clustered path, the mesh path and relation prediction
-come with the slices that port those models.
+fetches all ranks once at the end.
+
+Models that score in a per-relation space (``Model.needs_projection``:
+TransH, later TransR) rank their queries in groups, one per relation, as the
+JAX harness does: a stable sort by relation, each group padded to whole
+batches so that no batch spans two relations.  The JAX harness projects the
+entity table inside every scan trip; this one projects it once per group
+(``Model.project_entities``) and builds that group's transposed table once.
+Models that score in the raw entity space (TransE) rank all queries as one
+group.  The clustered path, the mesh path and relation prediction come with
+the slices that port the models that need them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,17 +122,21 @@ def rank_all(
     *,
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
     device="cuda",
-) -> Tuple[np.ndarray, np.ndarray]:
-    """(raw, filtered) int32 ranks of every query, in query order: per test
-    triple, corrupt-head then corrupt-tail (common/evaluation.cpp:230-238)."""
+) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+    """(raw, filtered) int32 ranks of every query in the harness's order, and
+    the size of each batch in that order.
+
+    The queries are, per test triple, corrupt-head then corrupt-tail
+    (common/evaluation.cpp:230-238).  For a model without projection that is
+    the harness's order; a model with one ranks them grouped by relation
+    (a stable sort of the query list by relation id).
+    """
     dev = resolve_device(device)
     if cfg.eval_impl not in ("auto", "pallas"):
         raise ValueError(
             f"eval_impl={cfg.eval_impl!r}: the port has one ranking sweep, the rank-count "
             "kernel; use 'auto' (or 'pallas')"
         )
-    if model.needs_projection:
-        raise NotImplementedError(f"{model.name}: per-relation projected evaluation is not ported yet")
     if test_triples is None:
         test_triples = dataset.test
     if test_triples is None or test_triples[0].size == 0:
@@ -174,15 +185,30 @@ def rank_all(
     q_lo[1::2] += heads_of_tr.values.shape[0]
     filt_vals = np.concatenate([heads_of_tr.values, tails_of_hr.values])
 
-    # The feed is padded to whole batches; pad slots rank query 0 and are
-    # dropped after the fetch.
-    n_batches = -(-n_query // batch_size)
-    n_slot = n_batches * batch_size
+    # Query groups: one per relation for a projecting model (a stable sort,
+    # one unique pass), else one group of every query.
+    if model.needs_projection:
+        order = np.argsort(q_rel, kind="stable")
+        uniq, starts = np.unique(q_rel[order], return_index=True)
+        bounds = np.append(starts, n_query)
+        groups = [(int(uniq[g]), order[bounds[g] : bounds[g + 1]]) for g in range(uniq.shape[0])]
+    else:
+        groups = [(None, np.arange(n_query))]
+
+    # The feed holds the groups in order, each padded to whole batches; pad
+    # slots rank query 0 and are dropped after the fetch.
+    sel_parts = []
+    for _, idxs in groups:
+        n_slot = -(-idxs.shape[0] // batch_size) * batch_size
+        sel_parts.append(np.concatenate([idxs, np.full(n_slot - idxs.shape[0], -1)]))
+    feed_sel = np.concatenate(sel_parts)
+    real = feed_sel >= 0
+    sizes = [min(batch_size, idxs.shape[0] - s) for _, idxs in groups for s in range(0, idxs.shape[0], batch_size)]
 
     def upload(a: np.ndarray, dtype) -> torch.Tensor:
-        padded = np.zeros(n_slot, dtype=dtype)
-        padded[:n_query] = a
-        return torch.from_numpy(padded).to(dev)
+        out = np.zeros(feed_sel.shape[0], dtype=dtype)
+        out[real] = a[feed_sel[real]]
+        return torch.from_numpy(out).to(dev)
 
     feed = dict(
         q_anchor=upload(q_anchor, np.int32),
@@ -193,19 +219,24 @@ def rank_all(
         q_count=upload(q_count, np.int32),
         filt_vals=torch.from_numpy(filt_vals.astype(np.int32)).to(dev),
     )
+    # One candidate width for the whole eval, as the JAX harness compiles once.
     kmax = _round_up_pow2(int(q_count.max(initial=1)))
 
-    proj = params["entity"]
-    proj_t = proj.T.contiguous()
-    raws = torch.empty((n_batches, batch_size), dtype=torch.int32, device=dev)
+    raws = torch.empty((feed_sel.shape[0] // batch_size, batch_size), dtype=torch.int32, device=dev)
     filts = torch.empty_like(raws)
-    for i in range(n_batches):
-        raws[i], filts[i] = ranking.rank_feed_queries(
-            proj, proj_t, params["relation"], **feed,
-            start=i * batch_size, distance=distance, block_size=block_size,
-            batch=batch_size, kmax=kmax,
-        )
-    return raws.reshape(-1)[:n_query].cpu().numpy(), filts.reshape(-1)[:n_query].cpu().numpy()
+    i = 0
+    for rel_id, idxs in groups:
+        # The group's table, projected once, and that table transposed.
+        proj = params["entity"] if rel_id is None else model.project_entities(params, rel_id)
+        proj_t = proj.T.contiguous()
+        for _ in range(0, idxs.shape[0], batch_size):
+            raws[i], filts[i] = ranking.rank_feed_queries(
+                proj, proj_t, params["relation"], **feed,
+                start=i * batch_size, distance=distance, block_size=block_size,
+                batch=batch_size, kmax=kmax,
+            )
+            i += 1
+    return raws.reshape(-1).cpu().numpy()[real], filts.reshape(-1).cpu().numpy()[real], sizes
 
 
 def evaluate(
@@ -219,14 +250,20 @@ def evaluate(
     device="cuda",
 ) -> Dict[str, float]:
     """Run filtered/raw link prediction on ``device``; returns the metrics."""
-    raw, filt = rank_all(model, params, dataset, cfg, test_triples=test_triples, device=device)
-    acc = EvalAccumulator()
-    # Batch by batch, as kb2e_tpu adds them, so the float sums agree bit for bit.
-    b = cfg.eval_batch_size
-    for s in range(0, raw.shape[0], b):
-        acc.add(raw[s : s + b], filt[s : s + b])
+    raw, filt, sizes = rank_all(model, params, dataset, cfg, test_triples=test_triples, device=device)
     if verbose:
         print(f"\rProcessed {100.0:05.2f}% ...")
+    return metrics_from_ranks(raw, filt, sizes)
+
+
+def metrics_from_ranks(raw: np.ndarray, filt: np.ndarray, sizes: List[int]) -> Dict[str, float]:
+    """The metrics of ``rank_all``'s ranks, added batch by batch in the
+    harness's order, as kb2e_tpu adds them, so the float sums agree bit for
+    bit."""
+    acc, start = EvalAccumulator(), 0
+    for b in sizes:
+        acc.add(raw[start : start + b], filt[start : start + b])
+        start += b
     return acc.metrics()
 
 

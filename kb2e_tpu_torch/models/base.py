@@ -12,8 +12,8 @@ virtual-hook surface (``common/trainer.h:58-77``):
   updates with scatter-adds, then applies the constraint projections once
   (fast mode).
 * ``sequential_update``  ≙ the exact double-buffered per-sample semantics
-  (transe/trainer.cpp:25-56) — the parity path, a hand-written kernel on
-  the card.
+  (transe/trainer.cpp:25-56, transh/trainer.cpp:11-58) — the parity path, a
+  hand-written kernel on the card.
 * ``project_entities`` / ``relation_vector`` — the evaluation hooks: every
   Trans* model evaluates as a distance sweep in a per-relation projected
   space (see kb2e_tpu_torch/ops/distances.py).
@@ -37,6 +37,20 @@ Params = Dict[str, torch.Tensor]
 # marks samples whose corruption could not be certified negative within the
 # resampling budget; they are masked out of the loss and the update.
 Batch = Dict[str, torch.Tensor]
+
+# ``EmbeddingConfig.parity_impl`` values.  Every one reaches the model's
+# sequential-update kernel wrapper (its plain version on CPU tensors); the
+# port has no scan path, so 'scan' is refused on the card.
+PARITY_IMPLS = ("auto", "pallas", "scan")
+
+
+def check_parity_impl(cfg: EmbeddingConfig, device: torch.device) -> None:
+    """Raise for a ``parity_impl`` the port does not run on ``device``."""
+    impl = cfg.parity_impl
+    if impl not in PARITY_IMPLS:
+        raise ValueError(f"parity_impl={impl!r}; expected one of {PARITY_IMPLS}")
+    if impl == "scan" and device.type != "cpu":
+        raise ValueError("parity_impl='scan' has no port on the card; use 'auto' or 'pallas' (the CUDA kernel)")
 
 
 class Model(abc.ABC):
@@ -100,6 +114,7 @@ def register(model: Model) -> Model:
 def get_model(name: str) -> Model:
     # Import lazily so registry population doesn't create import cycles.
     import kb2e_tpu_torch.models.transe  # noqa: F401
+    import kb2e_tpu_torch.models.transh  # noqa: F401
 
     try:
         return _REGISTRY[name.lower()]

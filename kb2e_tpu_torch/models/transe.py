@@ -28,7 +28,6 @@ from kb2e_tpu_torch.ops import distances, projections, scatter, transe_update
 from kb2e_tpu_torch.utils import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PARITY_IMPLS = ("auto", "pallas", "scan")
 
 
 def _residual_grad(res: torch.Tensor, distance: Distance) -> torch.Tensor:
@@ -126,11 +125,7 @@ class TransE(base.Model):
         tensors.  The port has no scan path: ``parity_impl='scan'`` is
         refused on the card rather than run as a per-sample loop there.
         """
-        impl = cfg.parity_impl
-        if impl not in PARITY_IMPLS:
-            raise ValueError(f"parity_impl={impl!r}; expected one of {PARITY_IMPLS}")
-        if impl == "scan" and params["entity"].device.type != "cpu":
-            raise ValueError("parity_impl='scan' has no port on the card; use 'auto' or 'pallas' (the CUDA kernel)")
+        base.check_parity_impl(cfg, params["entity"].device)
         ent, rel, loss, _ = transe_update.transe_sequential_update(
             params["entity"].to(torch.float32).contiguous(), params["relation"].to(torch.float32).contiguous(),
             batch["ph"], batch["pt"], batch["r"], batch["nh"], batch["nt"], batch["valid"],

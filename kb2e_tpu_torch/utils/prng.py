@@ -7,6 +7,8 @@ driven by the C ``rand()`` chain.  Like ``kb2e_tpu.utils.prng`` we keep the
 ``torch.Generator`` and differ from JAX's threefry draws for the same seed.
 
 * TransE init: randn(0, 1/k, -6/sqrt(k), 6/sqrt(k))  (transe/trainer.cpp:21-23)
+* TransH/TransR init: randn(0, 1/k, -1, 1)           (transh/trainer.cpp:61-63,
+                                                      transr/trainer.cpp:67-69)
 """
 
 from __future__ import annotations
@@ -39,3 +41,9 @@ def transe_init(generator: torch.Generator, shape, embedding_size: int, device, 
     return truncated_normal(
         generator, shape, sigma=1.0 / k, low=-6.0 / k**0.5, high=6.0 / k**0.5, device=device, dtype=dtype
     )
+
+
+def unit_bounded_init(generator: torch.Generator, shape, embedding_size: int, device, dtype=torch.float32) -> torch.Tensor:
+    """Reference TransH/TransR init distribution (randn(0, 1/k, -1, 1))."""
+    k = embedding_size
+    return truncated_normal(generator, shape, sigma=1.0 / k, low=-1.0, high=1.0, device=device, dtype=dtype)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
-the rank count (K1/K2) and the sequential TransE update (K3).
+the rank count (K1/K2), the sequential TransE update (K3) and the sequential
+TransH update (K4).
 
 Marked ``cuda``: without a CUDA device every test here skips.  This file
 imports neither jax nor kb2e_tpu, so it also runs where only the port is
@@ -15,7 +16,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import get_model
-from kb2e_tpu_torch.ops import distances, rank_count, transe_update
+from kb2e_tpu_torch.ops import distances, rank_count, transe_update, transh_update
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +173,90 @@ def test_parity_update_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
         assert dict(transe_update.launch_counts) == {"transe_update_l1": 1}
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transe").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
+
+
+def _transh_case(n, n_rel, k, b, seed, dev):
+    """A TransH snapshot (unit normals) and a batch with self-loops (h == t,
+    h' == t'), invalid samples and shared rows, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    ent, rel = rng.normal(size=(n, k)) * 0.4, rng.normal(size=(n_rel, k)) * 0.4
+    w = rng.normal(size=(n_rel, k))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    ph, pt, nh, nt = (rng.integers(0, n, b).astype(np.int32) for _ in range(4))
+    pt[: b // 4] = ph[: b // 4]
+    nt[b // 8: b // 4] = nh[b // 8: b // 4]
+    nh[b // 4: b // 2] = pt[b // 4: b // 2]  # the corrupted triple reads a row just written
+    r = rng.integers(0, n_rel, b).astype(np.int32)
+    valid = rng.random(b) > 0.1
+    tensors = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (ent, rel, w)]
+    tensors += [torch.from_numpy(a).to(dev) for a in (ph, pt, r, nh, nt, valid)]
+    return tensors
+
+
+@pytest.mark.parametrize("n,n_rel,k,b", [(40, 6, 12, 32), (64, 5, 16, 100), (300, 20, 33, 257),
+                                         (2000, 50, 100, 300), (500, 30, 200, 200)])
+@pytest.mark.parametrize("max_iters", [1, 2, 16])
+def test_transh_kernel_equals_plain_version_bit_for_bit(cuda, n, n_rel, k, b, max_iters):
+    # Unrounded tables: the plain version rounds every step as the kernel
+    # does and sums over k in its order, so decisions, trips, loss and all
+    # three tables agree exactly.
+    args = _transh_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, max_iters=max_iters)
+    transh_update.reset_launch_counts()
+    got = transh_update.transh_sequential_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    want = transh_update.transh_sequential_update_reference(*args, **kw)
+    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    assert torch.equal(got[4], want[4]) and 0 < int(got[4].sum()) < b
+    assert torch.equal(got[5], want[5]) and int(got[5].sum()) > 0
+    assert float(got[3]) == float(want[3])
+    for table, plain in zip(got[:3], want[:3]):
+        assert torch.equal(table, plain)
+    # The snapshot is not written.
+    assert torch.equal(args[0], _transh_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)[0])
+
+
+def test_transh_kernel_leaves_an_all_invalid_batch_alone(cuda):
+    args = _transh_case(50, 4, 16, 40, seed=1, dev=cuda)
+    args[-1] = torch.zeros_like(args[-1])
+    got = transh_update.transh_sequential_update(*args, learning_rate=0.05, margin=1.0, max_iters=16)
+    assert all(torch.equal(g, x) for g, x in zip(got[:3], args[:3])) and float(got[3]) == 0.0
+    assert not got[4].any() and not got[5].any()
+
+
+def test_transh_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    args = _transh_case(50, 4, 16, 40, seed=2, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, max_iters=16)
+    bad = {
+        0: args[0].double(),
+        2: args[2][:3].contiguous(),  # norm of the wrong shape
+        1: args[1].T.contiguous().T,  # not contiguous
+        3: args[3].long(),
+        8: args[8].int(),  # valid must be bool
+        4: args[4].cpu(),
+    }
+    for i, x in bad.items():
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            transh_update.transh_sequential_update(*args[:i], x, *args[i + 1:], **kw)
+    out_of_range = args[5].clone()
+    out_of_range[3] = 4  # a relation id past R
+    with pytest.raises(ValueError, match="fall outside"):
+        transh_update.transh_sequential_update(*args[:5], out_of_range, *args[6:], **kw)
+    wide = _transh_case(8, 2, 1025, 4, seed=3, dev=cuda)
+    with pytest.raises(ValueError, match="k = 1025"):
+        transh_update.transh_sequential_update(*wide, **kw)
+
+
+def test_transh_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cuda):
+    args = _transh_case(50, 4, 16, 40, seed=3, dev=cuda)
+    params = dict(zip(("entity", "relation", "norm"), args[:3]))
+    batch = dict(zip(("ph", "pt", "r", "nh", "nt", "valid"), args[3:]))
+    cfg = EmbeddingConfig(embedding_size=16, learning_rate=0.05, update_mode="parity")
+    for impl in ("auto", "pallas"):
+        transh_update.reset_launch_counts()
+        out, _ = get_model("transh").sequential_update(params, batch, cfg.replace(parity_impl=impl))
+        assert dict(transh_update.launch_counts) == {"transh_update": 1}
+        assert set(out) == set(params)
+    with pytest.raises(ValueError, match="parity_impl='scan'"):
+        get_model("transh").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
