@@ -24,7 +24,12 @@ non-zero exit on any failure:
               and the next 1/8 of its corrupted triples h' == t', on
               TransH-init tables at each of K4_SETTINGS), equal to its plain
               version bit for bit: decisions, projector trips, loss and all
-              three tables;
+              three tables; the TransR sequential update (the same width, a
+              whole sampler batch of 4,831 with every 8th h == t and every
+              8th h' == t', on TransR-init tables at each of K5_SETTINGS, L1
+              and L2), equal bit for bit to its plain version, which runs on
+              the host's CPU in one process per setting while the card checks
+              the other kernels;
 4. main     — the main paths on an FB15k-shaped data directory (bench.py's
               configuration), each with the launch counts set to 0 just
               before it and read just after:
@@ -53,9 +58,25 @@ non-zero exit on any failure:
               * TransH quality: QUALITY.md's TransH row, the same KG and
                 flags in both modes; filtered Hits@10 must land in
                 QUALITY_BAND_TRANSH;
+              * TransR eval: seeded TransR-init tables through
+                ``kb2e_tpu_torch.cli.eval_transr.main`` for ``--distance 0``
+                (rank count L1) and ``1`` (L2), one launch per batch of each
+                relation's group, the first 4,096 ranks in group order
+                against the plain version;
+              * TransR training, warm-started from the fast TransE run's
+                files: 2 fast epochs (no kernel; the loss is finite and
+                falls; ``eval_transr`` scores the written files) and 1
+                parity epoch (one TransR sequential-update launch per batch,
+                100);
+              * TransR quality: QUALITY.md's TransR row (lr 0.01,
+                warm-started from the planted-KG TransE fast run) in both
+                modes; filtered Hits@10 must land in the bands of
+                QUALITY_BANDS_TRANSR;
 5. timing   — per kernel at the main path's shapes: the kernel, the plain
               version, one PyTorch library call for the same function where
-              there is one, and the card's lower bound.
+              there is one, and the card's lower bound.  The rank count's
+              records count the launches of every eval path (TransE, both
+              TransH flags, TransR).
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -65,6 +86,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import multiprocessing as mp
 import os
 import re
 import subprocess
@@ -95,12 +117,23 @@ TRAIN_FLAGS = ["--size", str(K), "--rate", "0.001", "--margin", "1", "--method",
 # 40 epochs, bern, L1.  Filtered Hits@10 was 0.439 there (chance 0.017).
 QUALITY_KG = (600, 24, 20_000, 11)
 QUALITY_SIZE, QUALITY_BATCHES, QUALITY_EPOCHS = 32, 16, 40
-QUALITY_FLAGS = ["--size", str(QUALITY_SIZE), "--rate", "0.02", "--margin", "1", "--method", "1", "--batches", str(QUALITY_BATCHES),
-                 "--epochs", str(QUALITY_EPOCHS), "--seed", "5"]
+
+
+def quality_flags(rate: str):
+    return ["--size", str(QUALITY_SIZE), "--rate", rate, "--margin", "1", "--method", "1",
+            "--batches", str(QUALITY_BATCHES), "--epochs", str(QUALITY_EPOCHS), "--seed", "5"]
+
+
+QUALITY_FLAGS = quality_flags("0.02")
 QUALITY_BAND = (0.399, 0.479)
 # QUALITY.md's TransH row (QUALITY.md:20): the same KG and flags gave
 # filtered Hits@10 0.423 there; the band is +-0.04, as TransE's.
 QUALITY_BAND_TRANSH = (0.383, 0.463)
+# QUALITY.md's TransR row (QUALITY.md:21, examples/quality_run.py:105-113):
+# half TransE's rate, warm-started from the TransE run; filtered Hits@10
+# 0.499 there, +-0.04 in fast mode.  Parity mode must keep at least the
+# TransE band's low end, so the warm start is not lost.
+QUALITY_BANDS_TRANSR = {"fast": (0.459, 0.539), "parity": (0.399, 1.0)}
 # (learning rate, projector cap) of the TransH update's checks against its
 # plain version: bench.py's rate and the default cap, which the main path
 # runs, then lr 0.05 with caps of 2 and of 1.  On TransH-init tables few
@@ -108,8 +141,14 @@ QUALITY_BAND_TRANSH = (0.383, 0.463)
 # reaches it, is what makes sure the capped exit is held against the plain
 # version.
 K4_SETTINGS = ((0.001, 16), (0.05, 2), (0.05, 1))
+# The same settings for the TransR update, each for L1 and L2, on a whole
+# sampler batch: its plain version walks every output dim of every projector
+# trip in Python, tens of ms a sample, so it runs on the host's CPU, one
+# process per setting, while the card checks the other kernels.
+K5_SETTINGS = K4_SETTINGS
 IDX_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
 TRANSH_KEYS = ("entity", "relation", "norm")
+TRANSR_KEYS = ("entity", "relation", "proj")
 # Unrounded inputs: sums taken in another order may move an energy across a
 # tie, so a few counts may differ; dyadic inputs must match exactly.
 MAX_QUERY_SHARE_OFF, MAX_COUNT_OFF = 0.001, 2
@@ -157,9 +196,9 @@ def device_phase():
 
 
 def kernel_modules():
-    from kb2e_tpu_torch.ops import rank_count, transe_update, transh_update
+    from kb2e_tpu_torch.ops import rank_count, transe_update, transh_update, transr_update
 
-    return rank_count, transe_update, transh_update
+    return rank_count, transe_update, transh_update, transr_update
 
 
 def build_phase():
@@ -171,10 +210,10 @@ def build_phase():
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     # ptxas's report per kernel template; the template's bool is kL2 for the
-    # rank count and kL1 for the TransE update; the TransH update (L1 only)
-    # has no template.
+    # rank count and kL1 for the TransE and TransR updates; the TransH update
+    # (L1 only) has no template.
     distance_of = {"rank_count_kernel": ("L1", "L2"), "transe_update_kernel": ("L2", "L1"),
-                   "transh_update_kernel": ("L1",)}
+                   "transh_update_kernel": ("L1",), "transr_update_kernel": ("L2", "L1")}
     for path in paths:
         entry = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -237,11 +276,26 @@ def compare(got: torch.Tensor, want: torch.Tensor, exact: bool, what: str):
     return n_off, max_off
 
 
-def kernels_phase(tables, transh, data_dir):
+def kernels_phase(tables, transh, transr, data_dir, work):
     """Every kernel against its plain version; returns the worst errors and
-    the sequential updates' inputs for the timing phase."""
-    ctx = dict(rank_worst=rank_kernel_checks(tables), **update_kernel_checks(tables, data_dir))
-    ctx.update(transh_kernel_checks(transh, ctx["train_data"]))
+    the sequential updates' inputs for the timing phase.  The TransR update's
+    plain version runs on the host's CPU, one process per setting, while the
+    card checks the other kernels."""
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.train import step
+
+    t0 = time.perf_counter()
+    data = step.DeviceData.from_triple_set(triples.load_dataset(data_dir).train, "cuda")
+    print(f"[kernels] loaded the FB15k-shaped training graph and built its cuckoo index in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch, batch_path = transr_batch(transr, data, work)
+    settings = [(l1, lr, cap) for l1 in (True, False) for lr, cap in K5_SETTINGS]
+    # Spawned, not forked: the parent holds a CUDA context.
+    with concurrent.futures.ProcessPoolExecutor(len(settings), mp_context=mp.get_context("spawn")) as pool:
+        plain = {setting: pool.submit(transr_plain_job, batch_path, *setting) for setting in settings}
+        ctx = dict(rank_worst=rank_kernel_checks(tables), train_data=data, **update_kernel_checks(tables, data))
+        ctx.update(transh_kernel_checks(transh, data))
+        ctx.update(transr_kernel_checks(transr, batch, plain))
     return ctx
 
 
@@ -274,18 +328,16 @@ def rank_kernel_checks(tables):
     return worst
 
 
-def update_kernel_checks(tables, data_dir):
+def update_kernel_checks(tables, data):
     """The sequential-update kernel against its plain version at FB15k width,
     on a batch of the port's sampler over the FB15k-shaped training graph."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.constants import Distance
-    from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.ops import transe_update
     from kb2e_tpu_torch.train import step
 
     dev = tables["entity"].device
     t0 = time.perf_counter()
-    data = step.DeviceData.from_triple_set(triples.load_dataset(data_dir).train, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batch = step.sample_batch(gen, data, EmbeddingConfig(embedding_size=K, method=1), TRAIN_BATCH)
     # Self-loops: 1/8 of the positives h == t, the next 1/8 of the negatives.
@@ -293,7 +345,7 @@ def update_kernel_checks(tables, data_dir):
     batch["pt"][:eighth] = batch["ph"][:eighth]
     batch["nt"][eighth:2 * eighth] = batch["nh"][eighth:2 * eighth]
     idx = [batch[key] for key in IDX_KEYS]
-    print(f"[kernels] sampled a batch of {TRAIN_BATCH} on the FB15k-shaped graph (cuckoo index included) in "
+    print(f"[kernels] sampled a batch of {TRAIN_BATCH} on the FB15k-shaped graph in "
           f"{time.perf_counter() - t0:.1f} s; {int((~batch['valid']).sum())} invalid", flush=True)
 
     rng = np.random.default_rng(SEED + 2)
@@ -326,7 +378,7 @@ def update_kernel_checks(tables, data_dir):
             print(f"[kernels] {name} N={N_ENTITIES} R={N_RELATIONS} k={K} B={TRAIN_BATCH} {what}: "
                   f"{int(got[3].sum())} updates, 0 decisions differ, loss {loss:.6f} vs {want_loss:.6f}, "
                   f"max table difference {err:.3g}", flush=True)
-    return dict(update_worst=worst, update_args=(tables["entity"], tables["relation"], *idx), train_data=data)
+    return dict(update_worst=worst, update_args=(tables["entity"], tables["relation"], *idx))
 
 
 def transh_kernel_checks(transh, data):
@@ -384,6 +436,80 @@ def transh_kernel_checks(transh, data):
     return dict(transh_args=(*tables, *idx), transh_worst=worst, transh_plain_ms=plain_ms[K4_SETTINGS[0]])
 
 
+def transr_batch(transr, data, work: str):
+    """A sampler batch of 4,831 for the TransR update (every 8th sample
+    h == t, every 8th from the second h' == t'), and a file holding the
+    TransR-init tables and the batch for the plain version's processes."""
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.train import step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch = step.sample_batch(gen, data, EmbeddingConfig(embedding_size=K, method=1), TRAIN_BATCH)
+    batch["pt"][0::8] = batch["ph"][0::8]
+    batch["nt"][1::8] = batch["nh"][1::8]
+    path = os.path.join(work, "k5_batch.npz")
+    np.savez(path, **{key: transr[key].cpu().numpy() for key in TRANSR_KEYS},
+             **{key: batch[key].cpu().numpy() for key in IDX_KEYS})
+    return batch, path
+
+
+def transr_plain_job(path: str, l1: bool, lr: float, cap: int):
+    """The TransR update's plain version on the host's CPU, one thread, on
+    the tables and batch of ``path``; returns its outputs and its seconds."""
+    from kb2e_tpu_torch.ops import transr_update
+
+    torch.set_num_threads(1)
+    with np.load(path) as z:
+        args = [torch.from_numpy(z[key]) for key in (*TRANSR_KEYS, *IDX_KEYS)]
+    t0 = time.perf_counter()
+    out = transr_update.transr_sequential_update_reference(*args, learning_rate=lr, margin=1.0, l1=l1,
+                                                           max_iters=cap)
+    return [x.numpy() for x in out], time.perf_counter() - t0
+
+
+def transr_kernel_checks(transr, batch, plain):
+    """The TransR sequential-update kernel against its plain version at FB15k
+    width on TransR-init tables, bit for bit, on the whole sampler batch of
+    4,831 against the CPU processes' results (``plain``: one future per
+    (l1, lr, cap)).  Returns the inputs of the timing phase (the same tables
+    and batch), the largest table difference, and the plain version's time
+    at the main path's setting (L1, K5_SETTINGS[0])."""
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.ops import transr_update
+
+    tables = [transr[key] for key in TRANSR_KEYS]
+    idx = [batch[key] for key in IDX_KEYS]
+    worst, plain_ms = 0.0, {}
+    for (l1, lr, cap), future in plain.items():
+        name = transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
+        kw = dict(learning_rate=lr, margin=1.0, l1=l1, max_iters=cap)
+        got = [x.cpu() for x in transr_update.transr_sequential_update(*tables, *idx, **kw)]
+        want, seconds = future.result()
+        want = [torch.from_numpy(x) for x in want]
+        plain_ms[l1, lr, cap] = seconds * 1e3
+        what = f"{name} lr={lr} max_iters={cap}"
+        off = (got[4] != want[4]).nonzero()[:, 0].tolist()
+        for i in off[:10]:
+            print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(got[4][i])} on the card, "
+                  f"{bool(want[4][i])} in the plain version", flush=True)
+        check(not off, f"{what}: {len(off)} update decisions differ")
+        check(torch.equal(got[5], want[5]), f"{what}: projector trips differ")
+        check(float(got[3]) == float(want[3]), f"{what}: loss {float(got[3])!r} != {float(want[3])!r}")
+        rows_off = [int((g != w).reshape(g.shape[0], -1).any(dim=1).sum()) for g, w in zip(got[:3], want[:3])]
+        check(rows_off == [0, 0, 0], f"{what}: rows differ (entity, relation, proj): {rows_off}")
+        worst = max([worst] + [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])])
+        fired, capped = (int(x) for x in got[5].sum(0))
+        if cap == 1:
+            check(capped > 0, f"{what}: no projector call reached the cap")
+        print(f"[kernels] {what} N={N_ENTITIES} R={N_RELATIONS} k={K} B={TRAIN_BATCH} (a sampler batch; "
+              f"{int((idx[1] == idx[0]).sum())} h == t, {int((idx[4] == idx[3]).sum())} h' == t') on TransR-init "
+              f"tables: {int(got[4].sum())} updates, {fired} projector trips fired, {capped} projector calls "
+              f"stopped at the cap; decisions, trips, loss ({float(got[3]):.6f}) and all three tables equal to the "
+              f"plain version's (host CPU, {seconds:.1f} s, {seconds / TRAIN_BATCH * 1e3:.1f} ms a sample) bit for "
+              f"bit", flush=True)
+    return dict(transr_args=(*tables, *idx), transr_worst=worst, transr_plain_ms=plain_ms[(True, *K5_SETTINGS[0])])
+
+
 def write_fb15k_dir(data_dir: str):
     from kb2e_tpu_torch.data import synthetic
 
@@ -395,30 +521,40 @@ def write_fb15k_dir(data_dir: str):
     synthetic.write_kg_dir(data_dir, (h[:n], t[:n], r[:n]), N_ENTITIES, N_RELATIONS, split=split, seed=SEED)
 
 
-def data_phase(tables, transh, work: str):
+def data_phase(tables, transh, transr, work: str):
+    from kb2e_tpu_torch import get_model
     from kb2e_tpu_torch.constants import Method
     from kb2e_tpu_torch.convert import params_to_numpy
     from kb2e_tpu_torch.io import text
 
-    data_dir, out_dir, transh_dir = (os.path.join(work, name) for name in ("data", "out", "out_transh"))
+    data_dir, out_dir, transh_dir, transr_dir = (os.path.join(work, name)
+                                                 for name in ("data", "out", "out_transh", "out_transr"))
     write_fb15k_dir(data_dir)
-    host = params_to_numpy(tables)
-    text.write_embeddings(out_dir, Method.BERN, host["entity"], host["relation"], model_name="transe")
-    host = params_to_numpy(transh)
-    text.write_embeddings(transh_dir, Method.BERN, host["entity"], host["relation"], weights=host["norm"],
-                          model_name="transh")
-    print(f"[data] wrote the FB15k-shaped directory, k={K} TransE embeddings and k={K} TransH embeddings "
-          "(with weights.bern)", flush=True)
-    return data_dir, out_dir, transh_dir
+    for name, params, path in (("transe", tables, out_dir), ("transh", transh, transh_dir),
+                               ("transr", transr, transr_dir)):
+        host, key = params_to_numpy(params), get_model(name).weights_key
+        text.write_embeddings(path, Method.BERN, host["entity"], host["relation"],
+                              weights=host[key] if key else None, model_name=name)
+    print(f"[data] wrote the FB15k-shaped directory, k={K} TransE embeddings, k={K} TransH embeddings "
+          f"(with weights.bern) and k={K} TransR embeddings (weights.bern: R·k rows of k)", flush=True)
+    return data_dir, out_dir, transh_dir, transr_dir
 
 
-def main_phase(tables, work: str, data_dir: str, out_dir: str, transh_dir: str):
+def main_phase(tables, work: str, data_dir: str, out_dir: str, transh_dir: str, transr_dir: str):
     results = eval_path(tables, data_dir, out_dir)
     results.update(training_paths(work, data_dir))
-    results["quality"] = quality_path(work, "transe", QUALITY_BAND, "transe_update_l1", "QUALITY.md 0.439")
-    results["transh_eval"] = transh_eval_path(data_dir, transh_dir)
+    results["quality"] = quality_path(work, "transe", {"fast": QUALITY_BAND, "parity": QUALITY_BAND},
+                                      "transe_update_l1", "QUALITY.md 0.439")
+    results["transh_eval"] = projected_eval_path("transh", data_dir, transh_dir)
     results.update(transh_training_paths(work, data_dir))
-    results["transh_quality"] = quality_path(work, "transh", QUALITY_BAND_TRANSH, "transh_update", "QUALITY.md 0.423")
+    results["transh_quality"] = quality_path(work, "transh", {"fast": QUALITY_BAND_TRANSH, "parity": QUALITY_BAND_TRANSH},
+                                             "transh_update", "QUALITY.md 0.423")
+    results["transr_eval"] = projected_eval_path("transr", data_dir, transr_dir)
+    results.update(transr_training_paths(work, data_dir))
+    # Warm-started from the planted-KG TransE fast run above.
+    seed = ["--seeddatadir", os.path.join(work, "planted_transe_fast"), "--seedmethod", "1"]
+    results["transr_quality"] = quality_path(work, "transr", QUALITY_BANDS_TRANSR, "transr_update_l1",
+                                             "QUALITY.md 0.499", quality_flags("0.01") + seed)
     return results
 
 
@@ -500,76 +636,92 @@ def eval_launches(data_dir: str, grouped: bool) -> int:
     return int(sum(-(-2 * int(n) // EVAL_BATCH) for n in sizes))
 
 
-def transh_eval_path(data_dir: str, transh_dir: str):
-    """Seeded TransH-init tables through ``eval_transh`` for both distance
-    flags (TransH ignores it); the ranks in the harness's group order against
-    the plain rank count on the card."""
+def projected_eval_path(model_name: str, data_dir: str, out_dir: str):
+    """Seeded init tables of a projecting model through ``eval_<model>`` for
+    both distance flags: one rank-count launch per batch of each relation's
+    group; for each flag the ranks again by ``rank_all`` (ranking alone),
+    and the first N_CHECK queries of the harness's group order against the
+    plain rank count on the card.  TransH ignores the flag (quirk B5): both
+    give the same metrics."""
     from kb2e_tpu_torch import EmbeddingConfig, get_model
-    from kb2e_tpu_torch.cli import eval_transh
+    from kb2e_tpu_torch.cli import eval as eval_cli
     from kb2e_tpu_torch.constants import Distance, Method
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
     from kb2e_tpu_torch.io import text
     from kb2e_tpu_torch.ops import distances, rank_count
 
-    name = rank_count.KERNEL_NAMES[Distance.L1]
+    model = get_model(model_name)
     n_launch = eval_launches(data_dir, grouped=True)
-    metrics, walls = {}, {}
-    for distance in ("0", "1"):
-        argv = ["--datadir", data_dir, "--outdir", transh_dir, "--size", str(K), "--method", "1",
-                "--distance", distance, "--seed", str(SEED)]
-        reset_all_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics[distance] = eval_transh.main(argv)
-        walls[distance] = time.perf_counter() - t0
-        launches = all_launch_counts()
-        check(launches == {name: n_launch}, f"eval_transh: launches {launches}, expected {{{name!r}: {n_launch}}}")
-        m = metrics[distance]
-        check(m["num_corruptions"] == 2 * N_TEST, f"{m['num_corruptions']} corruptions ranked")
-        check(1 <= m["filtered_mean_rank"] <= m["raw_mean_rank"] <= N_ENTITIES, "mean ranks out of order")
-        print(f"[main] eval_transh --distance {distance}: {2 * N_TEST} queries in {N_RELATIONS} relation groups, "
-              f"{launches[name]} launches of {name}, eval wall {walls[distance]:.2f} s (loading included); raw MR "
-              f"{m['raw_mean_rank']:.6f} H@10 {m['raw_hits10']:.6f}, filtered MR {m['filtered_mean_rank']:.6f} "
-              f"H@10 {m['filtered_hits10']:.6f}", flush=True)
-    check(metrics["0"] == metrics["1"], "TransH's metrics depend on --distance")
-
-    # The same ranks again, then the first N_CHECK queries of the harness's
-    # group order by the plain version on the card.
     dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
-    host = text.read_embeddings(transh_dir, Method.BERN, N_ENTITIES, N_RELATIONS, K, weights_shape=(N_RELATIONS, K))
-    params = {key: torch.from_numpy(host[src].astype(np.float32)).cuda()
-              for key, src in zip(TRANSH_KEYS, ("entity", "relation", "weights"))}
-    model = get_model("transh")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K), device="cuda")
-    rank_wall = time.perf_counter() - t0
-    check(harness.metrics_from_ranks(raw, filt, sizes) == metrics["0"],
-          "a second run of the ranks gives other metrics")
-    print(f"[main] TransH ranking alone (rank_all on loaded data and tables: filter index, feed, one projection "
-          f"per relation, {len(sizes)} batches, fetch): {rank_wall:.3f} s", flush=True)
+    host = text.read_embeddings(out_dir, Method.BERN, N_ENTITIES, N_RELATIONS, K,
+                                weights_shape=model.weights_shape(N_RELATIONS, K))
+    params = {name: torch.from_numpy(host[src].astype(np.float32)).cuda()
+              for name, src in (("entity", "entity"), ("relation", "relation"), (model.weights_key, "weights"))}
     th, tt, tr = (a.astype(np.int64) for a in dataset.test)
     q_rel, q_anchor = np.repeat(tr, 2), np.stack([tt, th], 1).reshape(-1)
     q_true, q_sign = np.stack([th, tt], 1).reshape(-1), np.tile(np.float32([-1.0, 1.0]), th.shape[0])
-    order = np.argsort(q_rel, kind="stable")[:N_CHECK]
-    plain = []
-    for rel in np.unique(q_rel[order]):
-        sel = order[q_rel[order] == rel]
-        proj = model.project_entities(params, int(rel))
-        anchor, true_idx = (torch.from_numpy(a[sel]).cuda() for a in (q_anchor, q_true))
-        queries = proj[anchor] + torch.from_numpy(q_sign[sel]).cuda()[:, None] * params["relation"][int(rel)]
-        e_true = distances.residual_energy(proj[true_idx] - queries, Distance.L1)
-        proj_t = proj.T.contiguous()
-        for s in range(0, sel.shape[0], EVAL_BATCH):
-            plain.append(1 + rank_count.rank_counts_reference(
-                proj_t, queries[s:s + EVAL_BATCH].T.contiguous(), e_true[s:s + EVAL_BATCH],
-                true_idx[s:s + EVAL_BATCH].to(torch.int32), Distance.L1))
-    n_off, max_off = compare(torch.from_numpy(raw[:N_CHECK]).cuda(), torch.cat(plain), False,
-                             f"TransH main path, first {N_CHECK} queries in group order")
-    print(f"[main] TransH: first {N_CHECK} raw ranks in group order vs the plain version: {n_off} differ "
-          f"(max {max_off})", flush=True)
-    return dict(launches=n_launch, max_off=max_off, wall=walls["0"], rank_wall=rank_wall)
+    order = np.argsort(q_rel, kind="stable")
+    results = {}
+    for flag in (Distance.L1, Distance.L2):
+        distance = model.effective_distance(flag)
+        name = rank_count.KERNEL_NAMES[distance]
+        argv = ["--datadir", data_dir, "--outdir", out_dir, "--size", str(K), "--method", "1",
+                "--distance", str(int(flag)), "--seed", str(SEED)]
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eval_cli.main(argv, model_name=model_name)
+        wall = time.perf_counter() - t0
+        launches = all_launch_counts()
+        check(launches == {name: n_launch}, f"eval_{model_name}: launches {launches}, expected {{{name!r}: {n_launch}}}")
+        check(m["num_corruptions"] == 2 * N_TEST, f"{m['num_corruptions']} corruptions ranked")
+        check(1 <= m["filtered_mean_rank"] <= m["raw_mean_rank"] <= N_ENTITIES, "mean ranks out of order")
+        print(f"[main] eval_{model_name} --distance {int(flag)}: {2 * N_TEST} queries in {N_RELATIONS} relation "
+              f"groups, {launches[name]} launches of {name}, eval wall {wall:.2f} s (loading included); raw MR "
+              f"{m['raw_mean_rank']:.6f} H@10 {m['raw_hits10']:.6f}, filtered MR {m['filtered_mean_rank']:.6f} "
+              f"H@10 {m['filtered_hits10']:.6f}", flush=True)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K, distance=flag),
+                                            device="cuda")
+        rank_wall = time.perf_counter() - t0
+        check(harness.metrics_from_ranks(raw, filt, sizes) == m, "a second run of the ranks gives other metrics")
+        print(f"[main] {model_name} ranking alone (rank_all on loaded data and tables: filter index, feed, one "
+              f"projection per relation, {len(sizes)} batches, fetch): {rank_wall:.3f} s", flush=True)
+        # The harness's batches: each group padded to whole batches with query
+        # 0 (relation 0, sign 0).  A short batch would sum its norms and true
+        # energies in another order (torch's reduction order follows the
+        # shape), and a near tie could then rank otherwise.
+        plain, n_real = [], 0
+        for rel in np.unique(q_rel):
+            if n_real >= N_CHECK:
+                break
+            sel = order[q_rel[order] == rel]
+            n_real += sel.shape[0]
+            pad = -(-sel.shape[0] // EVAL_BATCH) * EVAL_BATCH - sel.shape[0]
+            anchor, true_idx, rels = (torch.from_numpy(np.concatenate([a[sel], np.zeros(pad, np.int64)])).cuda()
+                                      for a in (q_anchor, q_true, q_rel))
+            sign = torch.from_numpy(np.concatenate([q_sign[sel], np.zeros(pad, np.float32)])).cuda()
+            proj = model.project_entities(params, int(rel))
+            proj_t = proj.T.contiguous()
+            for s in range(0, anchor.shape[0], EVAL_BATCH):
+                b = slice(s, s + EVAL_BATCH)
+                queries = proj[anchor[b]] + sign[b, None] * params["relation"][rels[b]]
+                e_true = distances.residual_energy(proj[true_idx[b]] - queries, distance)
+                plain.append(1 + rank_count.rank_counts_reference(
+                    proj_t, queries.T.contiguous(), e_true, true_idx[b].to(torch.int32), distance))
+            plain[-1] = plain[-1][:EVAL_BATCH - pad]
+        n_off, max_off = compare(torch.from_numpy(raw[:N_CHECK]).cuda(), torch.cat(plain)[:N_CHECK], False,
+                                 f"{model_name} main path {distance.name}, first {N_CHECK} queries in group order")
+        print(f"[main] {model_name} {distance.name}: first {N_CHECK} raw ranks in group order vs the plain version: "
+              f"{n_off} differ (max {max_off})", flush=True)
+        results[flag] = dict(kernel=name, launches=n_launch, max_off=max_off, wall=wall, rank_wall=rank_wall, metrics=m)
+    if not model.uses_distance_flag:
+        check(results[Distance.L1]["metrics"] == results[Distance.L2]["metrics"],
+              f"{model_name}'s metrics depend on --distance")
+    return results
 
 
 def read_jsonl(path: str):
@@ -665,9 +817,39 @@ def transh_training_paths(work: str, data_dir: str):
     return dict(transh_fast=fast, transh_fast_eval=trained, transh_parity=dict(launches=launches[name], records=records))
 
 
-def quality_path(work: str, model: str, band, parity_kernel: str, reference: str):
+def transr_training_paths(work: str, data_dir: str):
+    """bench.py's configuration through ``train_transr``, warm-started from
+    the fast TransE run's files: 2 fast epochs, the written files scored by
+    ``eval_transr``; 1 parity epoch (L1)."""
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.ops import rank_count, transr_update
+
+    seed = ["--seeddatadir", os.path.join(work, "trained_fast"), "--seedmethod", "1"]
+    out = os.path.join(work, "transr_fast")
+    fast, _ = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2", *seed],
+                        os.path.join(work, "transr_fast.jsonl"), {},
+                        "train_transr fast, 2 epochs (warm start: train_transe's fast files)", model="transr")
+    check(fast[1]["loss"] < fast[0]["loss"], "the TransR fast loss does not fall")
+    for name in ("entity2vec.bern", "relation2vec.bern", "weights.bern", "embedding_meta.json"):
+        check(os.path.exists(os.path.join(out, name)), f"{name} not written")
+    trained = eval_run(["--datadir", data_dir, "--outdir", out, "--size", str(K), "--method", "1", "--seed", str(SEED)],
+                       {rank_count.KERNEL_NAMES[Distance.L1]: eval_launches(data_dir, grouped=True)},
+                       "eval_transr on the fast-trained files", model="transr")
+    name = transr_update.KERNEL_NAMES[Distance.L1]
+    records, launches = train_run(
+        ["--datadir", data_dir, "--outdir", os.path.join(work, "transr_parity"), *TRAIN_FLAGS, "--epochs", "1",
+         "--update-mode", "parity", *seed],
+        os.path.join(work, "transr_parity.jsonl"), {name: N_BATCHES}, "train_transr parity L1, 1 epoch (warm start)",
+        model="transr",
+    )
+    return dict(transr_fast=fast, transr_fast_eval=trained, transr_parity=dict(launches=launches[name], records=records))
+
+
+def quality_path(work: str, model: str, bands: dict, parity_kernel: str, reference: str, flags=QUALITY_FLAGS):
     """QUALITY.md's planted-KG setting for ``model`` in both modes, each
-    scored through the rank count; filtered Hits@10 must land in ``band``."""
+    scored through the rank count; filtered Hits@10 must land in
+    ``bands[mode]``."""
+    from kb2e_tpu_torch import get_model
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.data import synthetic
     from kb2e_tpu_torch.ops import rank_count
@@ -675,21 +857,21 @@ def quality_path(work: str, model: str, band, parity_kernel: str, reference: str
     n_ent, n_rel, n_triples, seed = QUALITY_KG
     kg = os.path.join(work, "planted")
     synthetic.write_kg_dir(kg, synthetic.planted_kg(n_ent, n_rel, n_triples, seed=seed), n_ent, n_rel, seed=seed)
-    n_eval = eval_launches(kg, grouped=model == "transh")
+    n_eval = eval_launches(kg, grouped=get_model(model).needs_projection)
     hits = {}
     for mode, expect in (("fast", {}), ("parity", {parity_kernel: QUALITY_BATCHES * QUALITY_EPOCHS})):
         out = os.path.join(work, f"planted_{model}_{mode}")
-        train_run(["--datadir", kg, "--outdir", out, *QUALITY_FLAGS, "--update-mode", mode],
+        train_run(["--datadir", kg, "--outdir", out, *flags, "--update-mode", mode],
                   os.path.join(work, f"planted_{model}_{mode}.jsonl"), expect, f"planted KG, {model} {mode}, {QUALITY_EPOCHS} epochs",
                   model=model)
         metrics = eval_run(["--datadir", kg, "--outdir", out, "--size", str(QUALITY_SIZE), "--method", "1"],
                            {rank_count.KERNEL_NAMES[Distance.L1]: n_eval}, f"planted KG, {model} {mode}: eval_{model}",
                            model=model)
         hits[mode] = metrics["filtered_hits10"]
-        check(band[0] <= hits[mode] <= band[1],
-              f"planted KG, {model} {mode}: filtered Hits@10 {hits[mode]} outside {band}")
+        check(bands[mode][0] <= hits[mode] <= bands[mode][1],
+              f"planted KG, {model} {mode}: filtered Hits@10 {hits[mode]} outside {bands[mode]}")
     print(f"[main] planted KG {model} filtered Hits@10: fast {hits['fast']:.6f}, parity {hits['parity']:.6f} "
-          f"(band {band}; {reference}, chance {10 / n_ent:.3f})", flush=True)
+          f"(bands {bands}; {reference}, chance {10 / n_ent:.3f})", flush=True)
     return hits
 
 
@@ -766,6 +948,7 @@ def transh_timing(ctx, results):
     """The TransH update per launch at B 4,831 on TransH-init tables, its plain
     version on the same inputs (timed in the kernels phase), the bound, and
     the TransH main paths' walls."""
+    from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import transh_update
 
     name = transh_update.KERNEL_NAME
@@ -784,7 +967,7 @@ def transh_timing(ctx, results):
           f"({b_by}; the sample chain is latency-bound), {n_updates} updates, {fired} projector trips fired, "
           f"{capped} calls capped; parity epoch {epoch['wall_s']:.3f} s over {N_BATCHES} launches, "
           f"{epoch['triples_per_s']:.0f} triples/s", flush=True)
-    fast, ev = results["transh_fast"], results["transh_eval"]
+    fast, ev = results["transh_fast"], results["transh_eval"][Distance.L1]
     print(f"[timing] train_transh fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
           + f"; eval_transh {ev['wall']:.2f} s (ranking alone {ev['rank_wall']:.3f} s) over {ev['launches']} launches",
@@ -804,12 +987,97 @@ def transh_timing(ctx, results):
     }
 
 
-def epoch_breakdown(ctx, model_name: str, params: dict, parity_reps: int = 3):
+def transr_bound_ms(n, n_rel, k, b, n_updates, fired, capped) -> tuple:
+    """Least time on the card for one TransR sequential-update call.
+
+    Bytes: the three tables read once and written once (W_r is k² floats a
+    relation), the batch read, the decisions and trips written, at the
+    memory rate.  Operations: fp32 instructions, each costed as an FMA (two
+    operations) at the fp32 peak: per sample 8k² for the four rows times W_r
+    (a multiply and an add a term) and 8k for the residuals and energies;
+    per update 16k² + 40k for the two directions' outer-product update of
+    W_r, W·x, the row norms of W_r (a square, an add and a division an
+    entry) and the vector updates and norms; per projector test 2k² + 2k
+    (a·W and its squared norm); per fired trip 6k² (per output dim, a
+    multiply and an add over k for the dot and two multiply-subtracts over
+    k).  A call makes one test more than it fires trips unless it stopped at
+    the cap, so this run's ``fired`` trips and ``capped`` calls give its
+    count of tests."""
+    nbytes = 2 * 4 * (n + n_rel + n_rel * k) * k + b * (5 * 4 + 1) + 3 * 4 * b + 4
+    tests = fired + 6 * n_updates - capped
+    ops = 2 * (b * (8 * k * k + 8 * k) + n_updates * (16 * k * k + 40 * k) + tests * (2 * k * k + 2 * k)
+               + fired * 6 * k * k)
+    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def transr_timing(ctx, results):
+    """The TransR update per launch at B 4,831 on TransR-init tables at the
+    main path's setting, its plain version on the same inputs (timed in the
+    kernels phase, on the host's CPU), the bound, and the TransR main paths'
+    walls."""
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.ops import transr_update
+
+    name = transr_update.KERNEL_NAMES[Distance.L1]
+    lr, cap = K5_SETTINGS[0]
+    kw = dict(learning_rate=lr, margin=1.0, l1=True, max_iters=cap)
+    args = ctx["transr_args"]
+    ms = time_ms(lambda: transr_update.transr_sequential_update(*args, **kw), 3, warmup=1)
+    out = transr_update.transr_sequential_update(*args, **kw)
+    n_updates, (fired, capped) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
+    b_ms, b_by = transr_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_updates, fired, capped)
+    plain_ms = ctx["transr_plain_ms"]
+    epoch = results["transr_parity"]["records"][0]
+    print(f"[timing] {name} B={TRAIN_BATCH} N={N_ENTITIES} R={N_RELATIONS} k={K}: kernel {ms:.4f} ms per launch "
+          f"({ms / TRAIN_BATCH * 1e3:.2f} us a sample; wrapper: id check, table copies, launch), plain "
+          f"{plain_ms:.1f} ms on the host's CPU, one thread ({plain_ms / TRAIN_BATCH:.2f} ms a sample), library "
+          f"none, bound {b_ms:.5f} ms ({b_by}; "
+          f"the sample chain is latency-bound), {n_updates} updates, {fired} projector trips fired, {capped} calls "
+          f"capped; parity epoch {epoch['wall_s']:.3f} s over {N_BATCHES} launches, "
+          f"{epoch['triples_per_s']:.0f} triples/s", flush=True)
+    # The L2 template on the same inputs (no main path launches it).
+    kw_l2 = dict(kw, l1=False)
+    ms_l2 = time_ms(lambda: transr_update.transr_sequential_update(*args, **kw_l2), 3, warmup=1)
+    out = transr_update.transr_sequential_update(*args, **kw_l2)
+    print(f"[timing] {transr_update.KERNEL_NAMES[Distance.L2]} on the same inputs: kernel {ms_l2:.4f} ms per launch, "
+          f"{int(out[4].sum())} updates, {int(out[5][:, 0].sum())} projector trips fired, "
+          f"{int(out[5][:, 1].sum())} calls capped", flush=True)
+    fast = results["transr_fast"]
+    evals = "; ".join(f"--distance {int(flag)}: eval {ev['wall']:.2f} s (ranking alone {ev['rank_wall']:.3f} s) "
+                      f"over {ev['launches']} launches of {ev['kernel']}"
+                      for flag, ev in results["transr_eval"].items())
+    print(f"[timing] train_transr fast at bench.py's configuration: epoch walls "
+          + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
+          + f"; eval_transr {evals}", flush=True)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "kb2e_tpu_torch/csrc/transr_update.cu",
+        "replaces": "kb2e_tpu/ops/pallas_update.py:464",
+        "launches": results["transr_parity"]["launches"],
+        "max_abs_err": ctx["transr_worst"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, parity_reps: int = 3,
+                    parity_batches: int = N_BATCHES, profile_window=None):
     """Where one fast epoch and one parity epoch of ``model_name`` spend their
     time at bench.py's configuration: the epoch on CUDA events (median of a
     few runs), the card's busy time in one more run from torch.profiler, and
-    its parts alone — the fast epoch's one sampling call and 100 updates, the
-    parity epoch's 100 (sample, update) pairs."""
+    its parts alone — the fast epoch's one sampling call and its updates (100
+    batches, or TransR's 1,888 chunks), the parity epoch's (sample, update)
+    pairs.  ``parity_batches`` below 100 cuts the parity runs to the epoch's
+    first batches (the main phase times TransR's whole parity epoch), and
+    ``profile_window`` profiles only the fast epoch's first that many
+    updates, set against their own wall: the profiler's cost grows with the
+    launches, to minutes for TransR's 1,888 chunks.  Ends with the seconds
+    it took, and those of the two profiled runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -861,33 +1129,51 @@ def epoch_breakdown(ctx, model_name: str, params: dict, parity_reps: int = 3):
 
     def parity_epoch():
         p = params
-        for _ in range(N_BATCHES):
+        for _ in range(parity_batches):
             p, _ = train_step(p, gen, data)
         return p
 
+    t_start = time.perf_counter()
     runner(params, gen, data)  # warm-up
-    _, fast_ms, fast_host_ms = timed(lambda: runner(params, gen, data), reps=5)
-    batches, sample_ms, _ = timed(lambda: runner.sample(gen, data), reps=5)
-    _, apply_ms, _ = timed(lambda: runner.apply(params, batches, data.n_entities), reps=5)
+    _, fast_ms, fast_host_ms = timed(lambda: runner(params, gen, data), reps=fast_reps)
+    batches, sample_ms, _ = timed(lambda: runner.sample(gen, data), reps=fast_reps)
+    _, apply_ms, _ = timed(lambda: runner.apply(params, batches, data.n_entities), reps=fast_reps)
     _, parity_ms, parity_host_ms = timed(parity_epoch, reps=parity_reps)
     p_sample = p_update = 0.0
     p = params
-    for _ in range(N_BATCHES):
+    for _ in range(parity_batches):
         b, ms, _ = timed(lambda: step.sample_batch(gen, data, pcfg, TRAIN_BATCH))
         p_sample += ms
         (p, _), ms, _ = timed(lambda: model.sequential_update(p, b, pcfg))
         p_update += ms
     # Profiled last: the host launches more slowly once the profiler has run.
-    fast_busy = device_busy_ms(lambda: runner(params, gen, data), "fast epoch")
-    parity_busy = device_busy_ms(parity_epoch, "parity epoch")
+    if profile_window is None:
+        busy_of, window_ms = "the epoch", fast_ms
+        t_profiled = time.perf_counter()
+        fast_busy = device_busy_ms(lambda: runner(params, gen, data), "fast epoch")
+    else:
+        part = {k: v[:profile_window] for k, v in batches.items()}
+        _, window_ms, _ = timed(lambda: runner.apply(params, part, data.n_entities), reps=fast_reps)
+        busy_of = f"its first {profile_window} updates, {window_ms:.3f} ms alone (median of {fast_reps})"
+        t_profiled = time.perf_counter()
+        fast_busy = device_busy_ms(lambda: runner.apply(params, part, data.n_entities),
+                                   f"fast epoch's first {profile_window} updates")
+    t_fast_profiled = time.perf_counter() - t_profiled
+    what = "parity epoch" if parity_batches == N_BATCHES else f"parity epoch's first {parity_batches} batches"
+    parity_busy = device_busy_ms(parity_epoch, what)
+    t_profiled = time.perf_counter() - t_profiled
     print(f"[timing] {model_name} fast epoch at B={TRAIN_BATCH} x {N_BATCHES}: {fast_ms:.3f} ms on the card's clock "
-          f"({fast_host_ms:.3f} ms on the host's; medians of 5), device busy {fast_busy:.3f} ms, idle share "
-          f"{idle(fast_busy, fast_ms)}; alone (medians of 5): sampling the epoch {sample_ms:.3f} ms, "
-          f"{N_BATCHES} {'fused ' if runner.fused else ''}updates {apply_ms:.3f} ms", flush=True)
-    print(f"[timing] {model_name} parity epoch: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms on "
+          f"({fast_host_ms:.3f} ms on the host's; medians of {fast_reps}), device busy {fast_busy:.3f} ms over "
+          f"{busy_of}, idle share {idle(fast_busy, window_ms)}; alone (medians of {fast_reps}): sampling the epoch "
+          f"{sample_ms:.3f} ms, "
+          f"{next(iter(batches.values())).shape[0]} {'fused ' if runner.fused else ''}"
+          f"{'chunk ' if runner.chunk else ''}updates {apply_ms:.3f} ms", flush=True)
+    print(f"[timing] {model_name} {what}: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms on "
           f"the host's; medians of {parity_reps}), device busy {parity_busy:.3f} ms, idle share "
-          f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {N_BATCHES} "
+          f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {parity_batches} "
           f"sequential updates {p_update:.3f} ms", flush=True)
+    print(f"[timing] {model_name} breakdown took {time.perf_counter() - t_start:.1f} s, of it the profiled runs "
+          f"{t_profiled:.1f} s (the fast epoch {t_fast_profiled:.1f} s)", flush=True)
 
 
 def update_timing(ctx, results):
@@ -933,6 +1219,15 @@ def timing_phase(tables, ctx, results):
     worst = ctx["rank_worst"]
     rng = np.random.default_rng(SEED + 1)
     records = []
+    lap = time.perf_counter()
+
+    def took(what):
+        """Print the seconds since the last call: where the phase's time goes."""
+        nonlocal lap
+        now = time.perf_counter()
+        print(f"[timing] {what} took {now - lap:.1f} s", flush=True)
+        lap = now
+
     for distance in (Distance.L1, Distance.L2):
         args = (*eval_inputs(tables["entity"], tables["relation"], EVAL_BATCH, distance, rng), distance)
         ms = time_ms(lambda: rank_count.rank_counts(*args), 200)
@@ -941,31 +1236,51 @@ def timing_phase(tables, ctx, results):
         lib_off = int((library_call(*args).long() - rank_count.rank_counts(*args).long()).abs().gt(0).sum())
         b_ms, b_by = bound_ms(distance, K, N_ENTITIES, EVAL_BATCH)
         name = rank_count.KERNEL_NAMES[distance]
+        # Every eval path's launches of this kernel: TransE's, then the
+        # projecting models' for each flag that ranks by this distance.
+        paths = [("eval_transe", results[distance])] + [
+            (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
+            for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name]
+        launches = sum(ev["launches"] for _, ev in paths)
         print(f"[timing] {name} B={EVAL_BATCH} N={N_ENTITIES} k={K}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms ({lib_off} counts differ from the kernel), bound {b_ms:.4f} ms "
               f"({b_by}); eval {results[distance]['wall']:.2f} s (ranking alone "
-              f"{results[distance]['rank_wall']:.3f} s) over {results[distance]['launches']} launches",
-              flush=True)
+              f"{results[distance]['rank_wall']:.3f} s) over {results[distance]['launches']} launches; "
+              f"{launches} launches over the eval paths (" + ", ".join(f"{what} {ev['launches']}" for what, ev in paths)
+              + ")", flush=True)
         records.append({
             "name": name,
             "route": "cuda",
             "source": "kb2e_tpu_torch/csrc/rank_count.cu",
             "replaces": "kb2e_tpu/ops/pallas_rank.py:" + ("48" if distance == Distance.L1 else "73"),
-            "launches": results[distance]["launches"],
-            "max_abs_err": max(worst[distance], results[distance]["max_off"]),
+            "launches": launches,
+            "max_abs_err": max([worst[distance]] + [ev["max_off"] for _, ev in paths]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": library_ms,
         })
+    took("the rank-count timing")
     records += update_timing(ctx, results)
+    took("the TransE update timing")
     fast = results["fast"]
     print(f"[timing] train_transe fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast), flush=True)
     epoch_breakdown(ctx, "transe", {"entity": ctx["update_args"][0], "relation": ctx["update_args"][1]})
+    lap = time.perf_counter()
     records.append(transh_timing(ctx, results))
+    took("the TransH update timing")
     epoch_breakdown(ctx, "transh", dict(zip(TRANSH_KEYS, ctx["transh_args"][:3])), parity_reps=2)
+    lap = time.perf_counter()
+    records.append(transr_timing(ctx, results))
+    took("the TransR update timing")
+    # Three fast epochs of TransR (4-7 s each) where the others take five, a
+    # quarter of its parity epoch (some 9 s a run), and the profiler on an
+    # eighth of its fast epoch's 1,888 chunks (the whole took 4 minutes), to keep the smoke
+    # near half its time limit.
+    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, parity_reps=1,
+                    parity_batches=N_BATCHES // 4, profile_window=236)
     return records
 
 
@@ -982,12 +1297,12 @@ def main() -> int:
 
     card = phase("device", device_phase)
     phase("build", build_phase)
-    tables, transh = init_tables("transe", torch.device("cuda")), init_tables("transh", torch.device("cuda"))
+    tables, transh, transr = (init_tables(model, torch.device("cuda")) for model in ("transe", "transh", "transr"))
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:
-        data_dir, out_dir, transh_dir = phase("data", data_phase, tables, transh, work)
-        ctx = phase("kernels", kernels_phase, tables, transh, data_dir)
-        results = phase("main", main_phase, tables, work, data_dir, out_dir, transh_dir)
+        data_dir, out_dir, transh_dir, transr_dir = phase("data", data_phase, tables, transh, transr, work)
+        ctx = phase("kernels", kernels_phase, tables, transh, transr, data_dir, work)
+        results = phase("main", main_phase, tables, work, data_dir, out_dir, transh_dir, transr_dir)
         records = phase("timing", timing_phase, tables, ctx, results)
 
     print(card)

@@ -5,10 +5,16 @@ is the analogue of the reference's ``trainTransE`` main
 (``transe/bin/trainTransE.cpp:9-20``): parse args, echo options, train,
 write reference-format embedding files.  Runs on ``--device`` (default
 ``cuda``).  ``--model`` keeps the JAX package's choices; the port trains
-TransE and TransH, and the other models raise until their slices land.
+TransE, TransH and TransR, and the other models raise until their slices
+land.
 """
 
 from __future__ import annotations
+
+import os
+import sys
+
+import torch
 
 from kb2e_tpu_torch import constants as C
 from kb2e_tpu_torch.cli import common
@@ -25,7 +31,6 @@ from kb2e_tpu_torch.utils.device import resolve_device
 MODELS = ("transe", "transh", "transr", "ctransr", "ptranse")
 # Where each model not ported yet stands in ROADMAP.md's Queue 1.
 NOT_PORTED = {
-    "transr": "Queue 1 item 9 (TransR, kernel K5; its TransE warm start with it)",
     "ctransr": "Queue 1 item 10 (CTransR)",
     "ptranse": "Queue 1 item 11 (PTransE)",
 }
@@ -57,6 +62,8 @@ def run_training(
     print(f"Number of Relations: {ts.n_relations}")
     print(f"Number of Entities: {ts.n_entities}")
 
+    init_params = _maybe_warm_start(model, cfg, ts, dev) if model.has_warm_start else None
+
     logger = log_lib.jsonl_logger(metrics_jsonl) if metrics_jsonl else None
     tb_sink = log_lib.TensorBoardSink(tensorboard_dir) if tensorboard_dir else None
     metrics_fn = log_lib.fan_out(logger.log if logger else None, tb_sink)
@@ -65,6 +72,7 @@ def run_training(
             model,
             cfg,
             ts,
+            init_params=init_params,
             metrics_fn=metrics_fn,
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every,
@@ -80,12 +88,39 @@ def run_training(
             logger.close()
 
     host = params_to_numpy({k: v.float() for k, v in params.items()})
-    # TransH's hyperplane normals go to weights.<tag>, one row per relation.
     text_io.write_embeddings(
         cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
-        weights=host.get("norm"), model_name=model_name,
+        weights=host[model.weights_key] if model.weights_key else None, model_name=model_name,
     )
     return params
+
+
+def _maybe_warm_start(model, cfg: EmbeddingConfig, ts, device):
+    """The TransE warm start (TransR's, transr/trainer.cpp:88-113), as
+    ``kb2e_tpu/cli/train.py::_maybe_warm_start``.
+
+    The initial tables come from a generator seeded with
+    ``seed ^ 0x5EED`` (the JAX package's warm-start key), then the entities
+    and relations are replaced by ``entity2vec.<tag>`` / ``relation2vec.<tag>``
+    of ``--seeddatadir`` (``--seedmethod``'s tag).  The reference fails when
+    the seed files are missing; here the model starts from those random
+    tables with a warning.
+    """
+    tag = C.Method.from_any(cfg.seed_method).tag
+    ent_path = os.path.join(cfg.seed_data_dir, f"{C.ENTITY_EMBEDDING_BASENAME}.{tag}")
+    rel_path = os.path.join(cfg.seed_data_dir, f"{C.RELATION_EMBEDDING_BASENAME}.{tag}")
+    generator = torch.Generator(device=device).manual_seed(cfg.resolved_seed() ^ 0x5EED)
+    params = model.init_params(generator, ts.n_entities, ts.n_relations, cfg, device)
+    if not (os.path.exists(ent_path) and os.path.exists(rel_path)):
+        print(
+            f"Warning: seed files not found under '{cfg.seed_data_dir}' — "
+            f"starting {model.name} from random init instead of a TransE warm start.",
+            file=sys.stderr,
+        )
+        return params
+    ent = text_io.read_matrix(ent_path, ts.n_entities, cfg.embedding_size)
+    rel = text_io.read_matrix(rel_path, ts.n_relations, cfg.embedding_size)
+    return model.warm_start_params(params, ent, rel)
 
 
 def _make_valid_eval(model, cfg: EmbeddingConfig, dataset, device):

@@ -48,6 +48,10 @@ class TransH(base.Model):
     name = "transh"
     uses_distance_flag = False  # quirk B5
     needs_projection = True
+    weights_key = "norm"  # the hyperplane normals, one row per relation
+
+    def weights_shape(self, n_relations, k):
+        return (n_relations, k)
 
     def init_params(self, generator, n_entities, n_relations, cfg: EmbeddingConfig, device) -> base.Params:
         k = cfg.embedding_size

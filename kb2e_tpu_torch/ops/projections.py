@@ -10,7 +10,9 @@
   ``max_iters`` trips.  Batched over leading rows, where the JAX package
   vmaps its single-pair version.
 
-The TransR projection comes with the model that uses it.
+TransR's ``transRNorm`` is ``ops/transr_update.py::transr_ball_project``,
+in its kernel's sum order; the fast update runs one masked trip of it
+inline (``models/transr.py``).
 """
 
 from __future__ import annotations

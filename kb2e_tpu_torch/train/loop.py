@@ -10,7 +10,9 @@ checkpoints with resume, and periodic link-prediction eval.
 All randomness — the initial tables and every sampled batch — comes from one
 ``torch.Generator`` on the training device, seeded with
 ``cfg.resolved_seed()``.  A checkpoint stores that generator's state, and
-resume restores it, where ``kb2e_tpu`` replays its key splits.
+resume restores it, where ``kb2e_tpu`` replays its key splits.  Given
+``init_params`` (TransR's TransE warm start) the loop starts from those
+tables and its generator draws only the batches.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ def train(
     cfg: EmbeddingConfig,
     triples: TripleSet,
     *,
+    init_params: Optional[Params] = None,
     metrics_fn: Optional[Callable[[dict], None]] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
@@ -47,13 +50,17 @@ def train(
 
     ``update_mode`` 'fast' runs one presampled epoch per epoch
     (:class:`step_lib.EpochRunner`); 'parity' samples each batch and applies
-    it with ``model.sequential_update``.
+    it with ``model.sequential_update``.  ``init_params`` replaces the
+    model's initial tables (they are moved to ``device``).
     """
     dev = resolve_device(device)
     if cfg.update_mode not in ("fast", "parity"):
         raise ValueError(f"update_mode={cfg.update_mode!r}; expected 'fast' or 'parity'")
     generator = torch.Generator(device=dev).manual_seed(cfg.resolved_seed())
-    params = model.init_params(generator, triples.n_entities, triples.n_relations, cfg, dev)
+    if init_params is None:
+        params = model.init_params(generator, triples.n_entities, triples.n_relations, cfg, dev)
+    else:
+        params = {k: v.to(dev) for k, v in init_params.items()}
 
     start_epoch = 0
     if resume and checkpoint_dir:

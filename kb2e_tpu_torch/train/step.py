@@ -9,8 +9,10 @@ double-buffered semantics instead (``Model.sequential_update``).
 Where ``kb2e_tpu`` jit-compiles a step and runs a whole epoch as one
 ``lax.scan``, the port runs eagerly: the epoch runner samples the whole
 epoch in one call, then applies its batches in order in a Python loop.
-The mesh, the chunk-sequential branch (TransR/CTransR) and its segment
-launches are not ported here.
+For the chunk-sequential models (TransR) the epoch is cut into chunk-sized
+mini-batches instead, as ``kb2e_tpu`` cuts it.  The mesh and the segment
+launches of the chunked epoch (a workaround for a TPU backend fault) are not
+ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Method
 from kb2e_tpu_torch.data.triples import TripleSet
-from kb2e_tpu_torch.models.base import Batch, Model, Params
+from kb2e_tpu_torch.models.base import Batch, Model, Params, pad_to_chunks
 from kb2e_tpu_torch.sampling import corruption, cuckoo
 
 
@@ -120,14 +122,19 @@ def batch_size_for(ts_num_triples: int, num_batches: int) -> int:
 
 
 class EpochRunner:
-    """A whole epoch of the fast update: ``num_batches`` batches, in order.
+    """A whole epoch of the fast update, its batches in order.
 
     ``runner(params, generator, data)`` presamples every batch of the epoch
     in one ``sample_batch`` call (sampling does not depend on the evolving
     tables) and then applies them with :meth:`apply`, which tests can also
     feed injected batches.  With ``fused`` (the default for models that
     support it) the batches update one [N+R, k] table
-    (``Model.fused_table_update``).  Returns (params, epoch loss).
+    (``Model.fused_table_update``).  A model with a ``chunk_size`` (TransR)
+    gets the epoch as mini-batches of ``min(chunk_size, rows)`` instead of
+    ``num_batches`` batches: batch boundaries carry no meaning for its
+    chunk-sequential update, so the epoch's samples are padded with invalid
+    slots to whole chunks and applied chunk by chunk
+    (``kb2e_tpu/train/step.py:302-355``).  Returns (params, epoch loss).
     """
 
     def __init__(self, model: Model, cfg: EmbeddingConfig, batch_size: int, num_batches: int,
@@ -140,14 +147,19 @@ class EpochRunner:
         self.batch_size, self.num_batches = batch_size, num_batches
         # K > 1 negatives flatten each batch to batch_size*K pair rows.
         self.rows = batch_size * max(1, cfg.num_negatives)
+        # Never coarser than the configured batch.
+        self.chunk = min(model.chunk_size, self.rows) if model.chunk_size is not None and not fused else None
 
     def sample(self, generator: torch.Generator, data: DeviceData) -> Batch:
-        """Every batch of the epoch, each tensor shaped [num_batches, rows]."""
+        """Every batch of the epoch, each tensor shaped [num_batches, rows],
+        or for a chunked model [n_chunks, chunk] with the padding invalid."""
         big = sample_batch(generator, data, self.cfg, self.num_batches * self.batch_size)
-        return {k: v.reshape(self.num_batches, self.rows, *v.shape[1:]) for k, v in big.items()}
+        if self.chunk is None:
+            return {k: v.reshape(self.num_batches, self.rows, *v.shape[1:]) for k, v in big.items()}
+        return pad_to_chunks(big, self.chunk)
 
     def apply(self, params: Params, batches: Batch, n_entities: int) -> Tuple[Params, torch.Tensor]:
-        """Apply [num_batches, rows] batches in order; returns (params, loss sum)."""
+        """Apply [n, rows] batches in order; returns (params, loss sum)."""
         n_batches = next(iter(batches.values())).shape[0]
         losses = []
         if self.fused:

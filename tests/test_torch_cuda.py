@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
-the rank count (K1/K2), the sequential TransE update (K3) and the sequential
-TransH update (K4).
+the rank count (K1/K2), the sequential TransE update (K3), the sequential
+TransH update (K4) and the sequential TransR update (K5).
 
 Marked ``cuda``: without a CUDA device every test here skips.  This file
 imports neither jax nor kb2e_tpu, so it also runs where only the port is
@@ -16,7 +16,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import get_model
-from kb2e_tpu_torch.ops import distances, rank_count, transe_update, transh_update
+from kb2e_tpu_torch.ops import distances, rank_count, transe_update, transh_update, transr_update
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +67,28 @@ def test_kernel_near_plain_version_on_unrounded_inputs(cuda, distance):
     # Sums over k in one order on both sides; only fused-vs-unfused rounding
     # may move an energy across a near tie.
     assert int((diff > 0).sum()) <= 1 and int(diff.max()) <= 2
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_kernel_equals_plain_version_on_near_ties(cuda, distance):
+    # Each query's entities are the query moved by a permutation of one
+    # offset: equally far in exact arithmetic, so their float energies (and
+    # the true one, by the direct formula) tie to within a few ulps, and a
+    # count moves if the two sums round one step apart.  The plain version's
+    # addcmul rounds once on the card, as the kernel's fmaf.
+    rng = np.random.default_rng(6)
+    k, b, per = 100, 32, 64
+    q = rng.normal(size=(b, k)) * 0.1
+    d = rng.normal(size=(b, k)) * 0.1
+    ent = np.concatenate([q[i] + d[i][rng.permutation(k)][None, :] for i in range(b) for _ in range(per)])
+    ent = torch.from_numpy(ent.astype(np.float32)).to(cuda)
+    queries = torch.from_numpy(q.astype(np.float32)).to(cuda)
+    true_idx = torch.arange(b, dtype=torch.int32, device=cuda) * per
+    e_true = distances.residual_energy(ent[true_idx.long()] - queries, distance).contiguous()
+    args = (ent.T.contiguous(), queries.T.contiguous(), e_true, true_idx, distance)
+    got, want = rank_count.rank_counts(*args), rank_count.rank_counts_reference(*args)
+    assert int((got > 0).sum()) > b // 2  # near ties do move counts
+    assert torch.equal(got, want)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -260,3 +282,103 @@ def test_transh_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
         assert set(out) == set(params)
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transh").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
+
+
+def _transr_case(n, n_rel, k, b, seed, dev):
+    """A TransR snapshot (unit rows, W = I + noise) and a batch with
+    self-loops (h == t, h' == t'), invalid samples and shared rows, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    ent, rel = rng.normal(size=(n, k)), rng.normal(size=(n_rel, k))
+    ent /= np.linalg.norm(ent, axis=1, keepdims=True)
+    rel /= np.linalg.norm(rel, axis=1, keepdims=True)
+    w = np.eye(k) + rng.normal(size=(n_rel, k, k)) * 0.15
+    ph, pt, nh, nt = (rng.integers(0, n, b).astype(np.int32) for _ in range(4))
+    pt[: b // 4] = ph[: b // 4]
+    nt[b // 8: b // 4] = nh[b // 8: b // 4]
+    nh[b // 4: b // 2] = pt[b // 4: b // 2]  # the corrupted triple reads a row just written
+    r = rng.integers(0, n_rel, b).astype(np.int32)
+    r[b // 2: b // 2 + 4] = r[0]  # a relation's W written, then read again
+    valid = rng.random(b) > 0.1
+    tensors = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (ent, rel, w)]
+    tensors += [torch.from_numpy(a).to(dev) for a in (ph, pt, r, nh, nt, valid)]
+    return tensors
+
+
+# k = 224 is MAX_K: its working W_r (224 x 225 floats) needs the dynamic
+# shared-memory opt-in above 48 KB.
+@pytest.mark.parametrize("n,n_rel,k,b", [(40, 6, 12, 32), (64, 5, 16, 40), (300, 20, 33, 32),
+                                         (2000, 50, 100, 16), (500, 8, transr_update.MAX_K, 8)])
+@pytest.mark.parametrize("max_iters", [1, 2, 16])
+@pytest.mark.parametrize("l1", [True, False])
+def test_transr_kernel_equals_plain_version_bit_for_bit(cuda, n, n_rel, k, b, max_iters, l1):
+    # Unrounded tables: the plain version rounds every step as the kernel
+    # does and sums in its orders, so decisions, trips, loss and all three
+    # tables agree exactly.
+    args = _transr_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, l1=l1, max_iters=max_iters)
+    name = transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
+    transr_update.reset_launch_counts()
+    got = transr_update.transr_sequential_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(transr_update.launch_counts) == {name: 1}
+    want = transr_update.transr_sequential_update_reference(*args, **kw)
+    assert dict(transr_update.launch_counts) == {name: 1}
+    assert torch.equal(got[4], want[4]) and 0 < int(got[4].sum()) < b
+    assert torch.equal(got[5], want[5]) and int(got[5][:, 0].sum()) > 0
+    if max_iters == 1:
+        assert int(got[5][:, 1].sum()) > 0  # the capped exit ran
+    assert float(got[3]) == float(want[3])
+    for table, plain in zip(got[:3], want[:3]):
+        assert torch.equal(table, plain)
+    # The snapshot is not written.
+    assert torch.equal(args[2], _transr_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)[2])
+
+
+def test_transr_kernel_leaves_an_all_invalid_batch_alone(cuda):
+    args = _transr_case(50, 4, 16, 40, seed=1, dev=cuda)
+    args[-1] = torch.zeros_like(args[-1])
+    for l1 in (True, False):
+        got = transr_update.transr_sequential_update(*args, learning_rate=0.05, margin=1.0, l1=l1, max_iters=16)
+        assert all(torch.equal(g, x) for g, x in zip(got[:3], args[:3])) and float(got[3]) == 0.0
+        assert not got[4].any() and not got[5].any()
+
+
+def test_transr_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    args = _transr_case(50, 4, 16, 40, seed=2, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, l1=True, max_iters=16)
+    bad = {
+        0: args[0].double(),
+        2: args[2][:, :8].contiguous(),  # proj of the wrong shape
+        1: args[1].T.contiguous().T,  # not contiguous
+        3: args[3].long(),
+        8: args[8].int(),  # valid must be bool
+        4: args[4].cpu(),
+    }
+    for i, x in bad.items():
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            transr_update.transr_sequential_update(*args[:i], x, *args[i + 1:], **kw)
+    out_of_range = args[5].clone()
+    out_of_range[3] = 4  # a relation id past R
+    with pytest.raises(ValueError, match="fall outside"):
+        transr_update.transr_sequential_update(*args[:5], out_of_range, *args[6:], **kw)
+    out_of_range = args[6].clone()
+    out_of_range[0] = -1  # an entity id below 0
+    with pytest.raises(ValueError, match="fall outside"):
+        transr_update.transr_sequential_update(*args[:6], out_of_range, *args[7:], **kw)
+    wide = _transr_case(8, 2, transr_update.MAX_K + 1, 4, seed=3, dev=cuda)
+    with pytest.raises(ValueError, match=f"k = {transr_update.MAX_K + 1}"):
+        transr_update.transr_sequential_update(*wide, **kw)
+
+
+def test_transr_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cuda):
+    args = _transr_case(50, 4, 16, 40, seed=3, dev=cuda)
+    params = dict(zip(("entity", "relation", "proj"), args[:3]))
+    batch = dict(zip(("ph", "pt", "r", "nh", "nt", "valid"), args[3:]))
+    cfg = EmbeddingConfig(embedding_size=16, learning_rate=0.05, update_mode="parity", distance=1)
+    for impl in ("auto", "pallas"):
+        transr_update.reset_launch_counts()
+        out, _ = get_model("transr").sequential_update(params, batch, cfg.replace(parity_impl=impl))
+        assert dict(transr_update.launch_counts) == {"transr_update_l2": 1}
+        assert set(out) == set(params)
+    with pytest.raises(ValueError, match="parity_impl='scan'"):
+        get_model("transr").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
