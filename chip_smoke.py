@@ -29,7 +29,11 @@ non-zero exit on any failure:
               8th h' == t', on TransR-init tables at each of K5_SETTINGS, L1
               and L2), equal bit for bit to its plain version, which runs on
               the host's CPU in one process per setting while the card checks
-              the other kernels;
+              the other kernels; both updates also bit for bit on the
+              STRESS batches of their schedule (stress_batches: one chain of
+              the whole batch through one relation or one entity, no shared
+              row, fewer samples than resident blocks, no valid sample) at
+              the main path's setting;
 4. main     — the main paths on an FB15k-shaped data directory (bench.py's
               configuration), each with the launch counts set to 0 just
               before it and read just after:
@@ -76,7 +80,12 @@ non-zero exit on any failure:
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
               records count the launches of every eval path (TransE, both
-              TransH flags, TransR).
+              TransH flags, TransR).  The TransH and TransR updates are also
+              timed on each STRESS batch, beside its longest chain of
+              samples that share a row (from the schedule's predecessors)
+              and its count of updates, with the update pass's resident
+              blocks per SM, the device time of one call by kernel, and the
+              wrapper's id check alone.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -146,6 +155,9 @@ K4_SETTINGS = ((0.001, 16), (0.05, 2), (0.05, 1))
 # trip in Python, tens of ms a sample, so it runs on the host's CPU, one
 # process per setting, while the card checks the other kernels.
 K5_SETTINGS = K4_SETTINGS
+# Batches that stress the TransH and TransR updates' schedule
+# (stress_batches), checked and timed at the main path's setting.
+STRESS = ("one relation", "one entity", "distinct rows", "smaller than the grid", "all invalid")
 IDX_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
 TRANSH_KEYS = ("entity", "relation", "norm")
 TRANSR_KEYS = ("entity", "relation", "proj")
@@ -209,17 +221,20 @@ def build_phase():
         paths = list(pool.map(lambda m: m.build(), modules))
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    # ptxas's report per kernel template; the template's bool is kL2 for the
-    # rank count and kL1 for the TransE and TransR updates; the TransH update
-    # (L1 only) has no template.
+    # ptxas's report per kernel and template; the template's bool is kL2 for
+    # the rank count and kL1 for the TransE update and the TransR decide
+    # pass; the other kernels have no template (the TransH update is L1
+    # only; the update passes and the loss kernel read x, not the distance).
     distance_of = {"rank_count_kernel": ("L1", "L2"), "transe_update_kernel": ("L2", "L1"),
-                   "transh_update_kernel": ("L1",), "transr_update_kernel": ("L2", "L1")}
+                   "transr_decide_kernel": ("L2", "L1")}
     for path in paths:
         entry = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
             found = re.search(r"([A-Za-z_]+_kernel)(?:ILb([01])E)?", line) if "Compiling entry" in line else None
             if found:
-                entry = f"{found[1]} {distance_of.get(found[1], ('false', 'true'))[int(found[2] or 0)]}"
+                entry = f"{path.stem.rsplit('_', 1)[0]}: {found[1]}"
+                if found[2]:
+                    entry += f" {distance_of[found[1]][int(found[2])]}"
             elif "registers" in line or "spill" in line:
                 print(f"[build] {entry}: {line.replace('ptxas info    :', '').strip()}", flush=True)
 
@@ -288,14 +303,15 @@ def kernels_phase(tables, transh, transr, data_dir, work):
     data = step.DeviceData.from_triple_set(triples.load_dataset(data_dir).train, "cuda")
     print(f"[kernels] loaded the FB15k-shaped training graph and built its cuckoo index in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    batch, batch_path = transr_batch(transr, data, work)
-    settings = [(l1, lr, cap) for l1 in (True, False) for lr, cap in K5_SETTINGS]
+    batches, paths = transr_batches(transr, data, work)
+    jobs = [("sampler", l1, lr, cap) for l1 in (True, False) for lr, cap in K5_SETTINGS]
+    jobs += [(kind, True, *K5_SETTINGS[0]) for kind in STRESS]
     # Spawned, not forked: the parent holds a CUDA context.
-    with concurrent.futures.ProcessPoolExecutor(len(settings), mp_context=mp.get_context("spawn")) as pool:
-        plain = {setting: pool.submit(transr_plain_job, batch_path, *setting) for setting in settings}
+    with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=mp.get_context("spawn")) as pool:
+        plain = {job: pool.submit(transr_plain_job, paths["tables"], paths[job[0]], *job[1:]) for job in jobs}
         ctx = dict(rank_worst=rank_kernel_checks(tables), train_data=data, **update_kernel_checks(tables, data))
         ctx.update(transh_kernel_checks(transh, data))
-        ctx.update(transr_kernel_checks(transr, batch, plain))
+        ctx.update(transr_kernel_checks(transr, batches, plain))
     return ctx
 
 
@@ -384,9 +400,11 @@ def update_kernel_checks(tables, data):
 def transh_kernel_checks(transh, data):
     """The TransH sequential-update kernel against its plain version at FB15k
     width on TransH-init tables, bit for bit, on a whole sampler batch of
-    4,831 at each of K4_SETTINGS; returns the inputs of the timing phase (the
-    same tables and batch), the largest table difference, and the plain
-    version's time at the main path's setting, K4_SETTINGS[0]."""
+    4,831 at each of K4_SETTINGS, and on the stress batches made from it at
+    the main path's setting, K4_SETTINGS[0].  Returns the inputs of the
+    timing phase (the same tables and batches), the largest table
+    difference, and the plain version's time on the sampler batch at the
+    main path's setting."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.ops import transh_update
     from kb2e_tpu_torch.train import step
@@ -397,12 +415,14 @@ def transh_kernel_checks(transh, data):
     eighth = TRAIN_BATCH // 8
     batch["pt"][:eighth] = batch["ph"][:eighth]
     batch["nt"][eighth:2 * eighth] = batch["nh"][eighth:2 * eighth]
-    idx = [batch[key] for key in IDX_KEYS]
+    batches = {"sampler": batch, **stress_batches(batch, SEED + 5)}
+    checks = [("sampler", lr, cap) for lr, cap in K4_SETTINGS] + [(kind, *K4_SETTINGS[0]) for kind in STRESS]
 
     tables = [transh[key] for key in TRANSH_KEYS]
     name = transh_update.KERNEL_NAME
     worst, plain_ms = 0.0, {}
-    for lr, cap in K4_SETTINGS:
+    for kind, lr, cap in checks:
+        idx = [batches[kind][key] for key in IDX_KEYS]
         kw = dict(learning_rate=lr, margin=1.0, max_iters=cap)
         got = transh_update.transh_sequential_update(*tables, *idx, **kw)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -411,35 +431,76 @@ def transh_kernel_checks(transh, data):
         want = transh_update.transh_sequential_update_reference(*tables, *idx, **kw)
         stop.record()
         torch.cuda.synchronize()
-        plain_ms[lr, cap] = start.elapsed_time(stop)
+        plain_ms[kind, lr, cap] = start.elapsed_time(stop)
         what = f"{name} lr={lr} max_iters={cap}"
-        off = (got[4] != want[4]).nonzero()[:, 0].tolist()
-        for i in off[:10]:
-            print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(got[4][i])} on the card, "
-                  f"{bool(want[4][i])} in the plain version", flush=True)
-        check(not off, f"{what}: {len(off)} update decisions differ")
-        check(torch.equal(got[5], want[5]), f"{what}: projector trips differ")
-        loss, want_loss = float(got[3]), float(want[3])
-        check(loss == want_loss, f"{what}: loss {loss!r} != {want_loss!r}")
-        rows_off = [int((g != w).any(dim=1).sum()) for g, w in zip(got[:3], want[:3])]
-        check(rows_off == [0, 0, 0], f"{what}: rows differ (entity, relation, norm): {rows_off}")
-        worst = max([worst] + [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])])
+        worst = max(worst, check_update_equal(what, idx, got, want, cap))
         fired, capped = (int(x) for x in got[5].sum(0))
-        if cap == 1:
-            check(capped > 0, f"{what}: no projector call reached the cap")
-        print(f"[kernels] {what} N={N_ENTITIES} R={N_RELATIONS} k={K} B={TRAIN_BATCH} (a sampler batch; "
-              f"{int((idx[1] == idx[0]).sum())} h == t, {int((idx[4] == idx[3]).sum())} h' == t') on TransH-init "
+        print(f"[kernels] {what} N={N_ENTITIES} R={N_RELATIONS} k={K} {describe_batch(kind, idx)} on TransH-init "
               f"tables: {int(got[4].sum())} updates, {fired} projector trips fired, {capped} projector calls "
-              f"stopped at the cap; decisions, trips, loss ({loss:.6f}) and all three tables equal to the "
-              f"plain version's bit for bit (max difference {worst}); plain version {plain_ms[lr, cap]:.1f} ms",
-              flush=True)
-    return dict(transh_args=(*tables, *idx), transh_worst=worst, transh_plain_ms=plain_ms[K4_SETTINGS[0]])
+              f"stopped at the cap; decisions, trips, loss ({float(got[3]):.6f}) and all three tables equal to the "
+              f"plain version's bit for bit; plain version {plain_ms[kind, lr, cap]:.1f} ms", flush=True)
+    return dict(transh_args=(*tables, *[batch[key] for key in IDX_KEYS]), transh_worst=worst,
+                transh_stress={kind: [batches[kind][key] for key in IDX_KEYS] for kind in STRESS},
+                transh_plain_ms=plain_ms[("sampler", *K4_SETTINGS[0])])
 
 
-def transr_batch(transr, data, work: str):
+def stress_batches(batch, seed: int) -> dict:
+    """Batches that stress the update pass's schedule at FB15k width, made
+    from a sampler batch of 4,831: every sample on relation 0 (one chain of
+    the whole batch); entity 0 in every sample, as h, t, h', t' in turn (one
+    chain too); 1,345 samples that share no row (each relation once, 5,380
+    distinct entities: no chain at all); the batch's first 3 samples, fewer
+    than the resident blocks; and the batch with no valid sample."""
+    sub = {key: batch[key] for key in IDX_KEYS}
+    one_entity = {key: value.clone() for key, value in sub.items()}
+    for j, key in enumerate(("ph", "pt", "nh", "nt")):
+        one_entity[key][j::4] = 0
+    gen = torch.Generator().manual_seed(seed)
+    ents = torch.randperm(N_ENTITIES, generator=gen)[:4 * N_RELATIONS].to(torch.int32).reshape(4, N_RELATIONS)
+    distinct = {key: ents[j].cuda() for j, key in enumerate(("ph", "pt", "nh", "nt"))}
+    distinct["r"] = torch.randperm(N_RELATIONS, generator=gen).to(torch.int32).cuda()
+    distinct["valid"] = torch.ones(N_RELATIONS, dtype=torch.bool, device="cuda")
+    return {
+        "one relation": dict(sub, r=torch.zeros_like(sub["r"])),
+        "one entity": one_entity,
+        "distinct rows": distinct,
+        "smaller than the grid": {key: value[:3].clone() for key, value in sub.items()},
+        "all invalid": dict(sub, valid=torch.zeros_like(sub["valid"])),
+    }
+
+
+def describe_batch(kind: str, idx) -> str:
+    if kind == "sampler":
+        return (f"B={idx[0].shape[0]} (a sampler batch; {int((idx[1] == idx[0]).sum())} h == t, "
+                f"{int((idx[4] == idx[3]).sum())} h' == t')")
+    return f"B={idx[0].shape[0]} ({kind})"
+
+
+def check_update_equal(what: str, idx, got, want, cap: int) -> float:
+    """K4's or K5's outputs against their plain version's, bit for bit:
+    decisions, projector trips, loss and all three tables; at a cap of 1
+    some projector call must have reached it.  Returns the largest table
+    difference (0)."""
+    off = (got[4].cpu() != want[4].cpu()).nonzero()[:, 0].tolist()
+    for i in off[:10]:
+        print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(got[4][i])} on the card, "
+              f"{bool(want[4][i])} in the plain version", flush=True)
+    check(not off, f"{what}: {len(off)} update decisions differ")
+    check(torch.equal(got[5].cpu(), want[5].cpu()), f"{what}: projector trips differ")
+    check(float(got[3]) == float(want[3]), f"{what}: loss {float(got[3])!r} != {float(want[3])!r}")
+    pairs = [(g.cpu(), w.cpu()) for g, w in zip(got[:3], want[:3])]
+    rows_off = [int((g != w).reshape(g.shape[0], -1).any(dim=1).sum()) for g, w in pairs]
+    check(rows_off == [0, 0, 0], f"{what}: rows differ (entity, relation, weights): {rows_off}")
+    if cap == 1 and bool(got[4].any()):
+        check(int(got[5][:, 1].sum()) > 0, f"{what}: no projector call reached the cap")
+    return max(float((g - w).abs().max()) for g, w in pairs)
+
+
+def transr_batches(transr, data, work: str):
     """A sampler batch of 4,831 for the TransR update (every 8th sample
-    h == t, every 8th from the second h' == t'), and a file holding the
-    TransR-init tables and the batch for the plain version's processes."""
+    h == t, every 8th from the second h' == t') and the stress batches made
+    from it; and files holding the TransR-init tables and each batch for the
+    plain version's processes."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.train import step
 
@@ -447,67 +508,63 @@ def transr_batch(transr, data, work: str):
     batch = step.sample_batch(gen, data, EmbeddingConfig(embedding_size=K, method=1), TRAIN_BATCH)
     batch["pt"][0::8] = batch["ph"][0::8]
     batch["nt"][1::8] = batch["nh"][1::8]
-    path = os.path.join(work, "k5_batch.npz")
-    np.savez(path, **{key: transr[key].cpu().numpy() for key in TRANSR_KEYS},
-             **{key: batch[key].cpu().numpy() for key in IDX_KEYS})
-    return batch, path
+    batches = {"sampler": batch, **stress_batches(batch, SEED + 6)}
+    paths = {"tables": os.path.join(work, "k5_tables.npz")}
+    np.savez(paths["tables"], **{key: transr[key].cpu().numpy() for key in TRANSR_KEYS})
+    for kind, b in batches.items():
+        paths[kind] = os.path.join(work, f"k5_{kind.replace(' ', '_')}.npz")
+        np.savez(paths[kind], **{key: b[key].cpu().numpy() for key in IDX_KEYS})
+    return batches, paths
 
 
-def transr_plain_job(path: str, l1: bool, lr: float, cap: int):
+def transr_plain_job(tables_path: str, batch_path: str, l1: bool, lr: float, cap: int):
     """The TransR update's plain version on the host's CPU, one thread, on
-    the tables and batch of ``path``; returns its outputs and its seconds."""
+    the tables and the batch of those files; returns its outputs and its
+    seconds."""
     from kb2e_tpu_torch.ops import transr_update
 
     torch.set_num_threads(1)
-    with np.load(path) as z:
-        args = [torch.from_numpy(z[key]) for key in (*TRANSR_KEYS, *IDX_KEYS)]
+    with np.load(tables_path) as tables, np.load(batch_path) as batch:
+        args = [torch.from_numpy(tables[key]) for key in TRANSR_KEYS]
+        args += [torch.from_numpy(batch[key]) for key in IDX_KEYS]
     t0 = time.perf_counter()
     out = transr_update.transr_sequential_update_reference(*args, learning_rate=lr, margin=1.0, l1=l1,
                                                            max_iters=cap)
     return [x.numpy() for x in out], time.perf_counter() - t0
 
 
-def transr_kernel_checks(transr, batch, plain):
+def transr_kernel_checks(transr, batches, plain):
     """The TransR sequential-update kernel against its plain version at FB15k
-    width on TransR-init tables, bit for bit, on the whole sampler batch of
-    4,831 against the CPU processes' results (``plain``: one future per
-    (l1, lr, cap)).  Returns the inputs of the timing phase (the same tables
-    and batch), the largest table difference, and the plain version's time
-    at the main path's setting (L1, K5_SETTINGS[0])."""
+    width on TransR-init tables, bit for bit, against the CPU processes'
+    results (``plain``: one future per (batch, l1, lr, cap)): the whole
+    sampler batch of 4,831 at every setting, the stress batches at the main
+    path's (L1, K5_SETTINGS[0]).  Returns the inputs of the timing phase
+    (the same tables and batches), the largest table difference, and the
+    plain version's time on the sampler batch at the main path's setting."""
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import transr_update
 
     tables = [transr[key] for key in TRANSR_KEYS]
-    idx = [batch[key] for key in IDX_KEYS]
     worst, plain_ms = 0.0, {}
-    for (l1, lr, cap), future in plain.items():
+    for (kind, l1, lr, cap), future in plain.items():
+        idx = [batches[kind][key] for key in IDX_KEYS]
         name = transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
         kw = dict(learning_rate=lr, margin=1.0, l1=l1, max_iters=cap)
         got = [x.cpu() for x in transr_update.transr_sequential_update(*tables, *idx, **kw)]
         want, seconds = future.result()
         want = [torch.from_numpy(x) for x in want]
-        plain_ms[l1, lr, cap] = seconds * 1e3
+        plain_ms[kind, l1, lr, cap] = seconds * 1e3
         what = f"{name} lr={lr} max_iters={cap}"
-        off = (got[4] != want[4]).nonzero()[:, 0].tolist()
-        for i in off[:10]:
-            print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(got[4][i])} on the card, "
-                  f"{bool(want[4][i])} in the plain version", flush=True)
-        check(not off, f"{what}: {len(off)} update decisions differ")
-        check(torch.equal(got[5], want[5]), f"{what}: projector trips differ")
-        check(float(got[3]) == float(want[3]), f"{what}: loss {float(got[3])!r} != {float(want[3])!r}")
-        rows_off = [int((g != w).reshape(g.shape[0], -1).any(dim=1).sum()) for g, w in zip(got[:3], want[:3])]
-        check(rows_off == [0, 0, 0], f"{what}: rows differ (entity, relation, proj): {rows_off}")
-        worst = max([worst] + [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])])
+        worst = max(worst, check_update_equal(what, idx, got, want, cap))
         fired, capped = (int(x) for x in got[5].sum(0))
-        if cap == 1:
-            check(capped > 0, f"{what}: no projector call reached the cap")
-        print(f"[kernels] {what} N={N_ENTITIES} R={N_RELATIONS} k={K} B={TRAIN_BATCH} (a sampler batch; "
-              f"{int((idx[1] == idx[0]).sum())} h == t, {int((idx[4] == idx[3]).sum())} h' == t') on TransR-init "
+        print(f"[kernels] {what} N={N_ENTITIES} R={N_RELATIONS} k={K} {describe_batch(kind, idx)} on TransR-init "
               f"tables: {int(got[4].sum())} updates, {fired} projector trips fired, {capped} projector calls "
               f"stopped at the cap; decisions, trips, loss ({float(got[3]):.6f}) and all three tables equal to the "
-              f"plain version's (host CPU, {seconds:.1f} s, {seconds / TRAIN_BATCH * 1e3:.1f} ms a sample) bit for "
-              f"bit", flush=True)
-    return dict(transr_args=(*tables, *idx), transr_worst=worst, transr_plain_ms=plain_ms[(True, *K5_SETTINGS[0])])
+              f"plain version's (host CPU, {seconds:.1f} s, {seconds / idx[0].shape[0] * 1e3:.1f} ms a sample) "
+              f"bit for bit", flush=True)
+    return dict(transr_args=(*tables, *[batches["sampler"][key] for key in IDX_KEYS]), transr_worst=worst,
+                transr_stress={kind: [batches[kind][key] for key in IDX_KEYS] for kind in STRESS},
+                transr_plain_ms=plain_ms[("sampler", True, *K5_SETTINGS[0])])
 
 
 def write_fb15k_dir(data_dir: str):
@@ -944,6 +1001,58 @@ def transh_bound_ms(n, n_rel, k, b, n_updates, fired, capped) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def device_busy_ms(fn, what: str, top: int = 5) -> float:
+    """The card's kernel and copy time during fn: the sum of the device
+    events' durations in a torch.profiler trace (0 when it has none);
+    prints the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # Host ops carry their kernels' device time too: count device events only.
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    print(f"[timing] {what}, device time by kernel: " + "; ".join(
+        f"{name[:60]} {ms:.4f} ms over {count}" for ms, count, name in ops[:top]), flush=True)
+    return sum(ms for ms, _, _ in ops)
+
+
+def schedule_timing(name: str, module, update, args, stress: dict, kw: dict, reps: int) -> float:
+    """One update wrapper (K4's or K5's) per launch on the sampler batch and
+    on each stress batch, each with its longest chain of predecessors and
+    its count of updates; the update pass's resident blocks; the device time
+    of one call on the sampler batch by kernel; and the wrapper's id check
+    (one host sync) alone.  Returns the sampler batch's ms per launch."""
+    from kb2e_tpu_torch.ops import schedule
+
+    tables, idx = args[:3], args[3:]
+    times = {}
+    for kind, batch_idx in (("sampler", idx), *stress.items()):
+        call = (*tables, *batch_idx)
+        times[kind] = time_ms(lambda: update(*call, **kw), reps, warmup=1)
+        decided = update(*call, **kw)[4]
+        ph, pt, r, nh, nt = batch_idx[:5]
+        pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, N_ENTITIES), decided)
+        depth = int(schedule.chain_levels(pred, decided).max(initial=0))
+        print(f"[timing] {name} {describe_batch(kind, batch_idx)}: {times[kind]:.4f} ms per launch, "
+              f"{int(decided.sum())} updates, longest chain {depth}"
+              + (f" ({times[kind] / depth * 1e3:.2f} us a chained update)" if depth else ""), flush=True)
+    per_sm = module.resident_blocks_per_sm(K)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[timing] {name}: the one-relation chain {times['one relation']:.4f} ms against the sampler batch's "
+          f"{times['sampler']:.4f} ms ({times['one relation'] / times['sampler']:.2f} times); the update pass "
+          f"holds {per_sm} blocks on each of {sms} SMs", flush=True)
+    ph, pt, r, nh, nt = idx[:5]
+    check_ms = time_ms(lambda: schedule.check_ids(name, ph, pt, r, nh, nt, N_ENTITIES, N_RELATIONS), 20)
+    print(f"[timing] {name}: the wrapper's id check alone {check_ms:.4f} ms, "
+          f"{check_ms / times['sampler']:.2%} of the sampler batch's launch", flush=True)
+    device_busy_ms(lambda: update(*tables, *idx, **kw), f"{name} one call on the sampler batch", top=8)
+    return times["sampler"]
+
+
 def transh_timing(ctx, results):
     """The TransH update per launch at B 4,831 on TransH-init tables, its plain
     version on the same inputs (timed in the kernels phase), the bound, and
@@ -955,16 +1064,17 @@ def transh_timing(ctx, results):
     lr, cap = K4_SETTINGS[0]
     kw = dict(learning_rate=lr, margin=1.0, max_iters=cap)
     args = ctx["transh_args"]
-    ms = time_ms(lambda: transh_update.transh_sequential_update(*args, **kw), 5, warmup=1)
+    ms = schedule_timing(name, transh_update, transh_update.transh_sequential_update, args, ctx["transh_stress"],
+                         kw, reps=5)
     plain_ms = ctx["transh_plain_ms"]
     out = transh_update.transh_sequential_update(*args, **kw)
     n_updates, (fired, capped) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
     b_ms, b_by = transh_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_updates, fired, capped)
     epoch = results["transh_parity"]["records"][0]
     print(f"[timing] {name} B={TRAIN_BATCH} N={N_ENTITIES} R={N_RELATIONS} k={K}: kernel {ms:.4f} ms per launch "
-          f"(wrapper: id check, table copies, launch), plain {plain_ms:.4f} ms (one run; its per-sample loop syncs "
-          f"the host at every projector test), library none, bound {b_ms:.5f} ms "
-          f"({b_by}; the sample chain is latency-bound), {n_updates} updates, {fired} projector trips fired, "
+          f"(wrapper: id check, table copies, three launches and the schedule), plain {plain_ms:.4f} ms (one run; "
+          f"its per-sample loop syncs the host at every projector test), library none, bound {b_ms:.5f} ms "
+          f"({b_by}; the chains of samples are latency-bound), {n_updates} updates, {fired} projector trips fired, "
           f"{capped} calls capped; parity epoch {epoch['wall_s']:.3f} s over {N_BATCHES} launches, "
           f"{epoch['triples_per_s']:.0f} triples/s", flush=True)
     fast, ev = results["transh_fast"], results["transh_eval"][Distance.L1]
@@ -1023,26 +1133,30 @@ def transr_timing(ctx, results):
     lr, cap = K5_SETTINGS[0]
     kw = dict(learning_rate=lr, margin=1.0, l1=True, max_iters=cap)
     args = ctx["transr_args"]
-    ms = time_ms(lambda: transr_update.transr_sequential_update(*args, **kw), 3, warmup=1)
+    ms = schedule_timing(name, transr_update, transr_update.transr_sequential_update, args, ctx["transr_stress"],
+                         kw, reps=5)
     out = transr_update.transr_sequential_update(*args, **kw)
     n_updates, (fired, capped) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
     b_ms, b_by = transr_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_updates, fired, capped)
     plain_ms = ctx["transr_plain_ms"]
     epoch = results["transr_parity"]["records"][0]
     print(f"[timing] {name} B={TRAIN_BATCH} N={N_ENTITIES} R={N_RELATIONS} k={K}: kernel {ms:.4f} ms per launch "
-          f"({ms / TRAIN_BATCH * 1e3:.2f} us a sample; wrapper: id check, table copies, launch), plain "
+          f"({ms / TRAIN_BATCH * 1e3:.2f} us a sample; wrapper: id check, table copies, three launches and the "
+          f"schedule), plain "
           f"{plain_ms:.1f} ms on the host's CPU, one thread ({plain_ms / TRAIN_BATCH:.2f} ms a sample), library "
           f"none, bound {b_ms:.5f} ms ({b_by}; "
-          f"the sample chain is latency-bound), {n_updates} updates, {fired} projector trips fired, {capped} calls "
+          f"the chains of samples are latency-bound), {n_updates} updates, {fired} projector trips fired, {capped} calls "
           f"capped; parity epoch {epoch['wall_s']:.3f} s over {N_BATCHES} launches, "
           f"{epoch['triples_per_s']:.0f} triples/s", flush=True)
     # The L2 template on the same inputs (no main path launches it).
     kw_l2 = dict(kw, l1=False)
-    ms_l2 = time_ms(lambda: transr_update.transr_sequential_update(*args, **kw_l2), 3, warmup=1)
+    ms_l2 = time_ms(lambda: transr_update.transr_sequential_update(*args, **kw_l2), 5, warmup=1)
     out = transr_update.transr_sequential_update(*args, **kw_l2)
+    n_l2, (fired_l2, capped_l2) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
+    b2_ms, b2_by = transr_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_l2, fired_l2, capped_l2)
     print(f"[timing] {transr_update.KERNEL_NAMES[Distance.L2]} on the same inputs: kernel {ms_l2:.4f} ms per launch, "
-          f"{int(out[4].sum())} updates, {int(out[5][:, 0].sum())} projector trips fired, "
-          f"{int(out[5][:, 1].sum())} calls capped", flush=True)
+          f"bound {b2_ms:.5f} ms ({b2_by}), {n_l2} updates, {fired_l2} projector trips fired, {capped_l2} calls "
+          f"capped", flush=True)
     fast = results["transr_fast"]
     evals = "; ".join(f"--distance {int(flag)}: eval {ev['wall']:.2f} s (ranking alone {ev['rank_wall']:.3f} s) "
                       f"over {ev['launches']} launches of {ev['kernel']}"
@@ -1066,21 +1180,16 @@ def transr_timing(ctx, results):
 
 
 def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, parity_reps: int = 3,
-                    parity_batches: int = N_BATCHES, profile_window=None):
+                    profile_window=None):
     """Where one fast epoch and one parity epoch of ``model_name`` spend their
     time at bench.py's configuration: the epoch on CUDA events (median of a
     few runs), the card's busy time in one more run from torch.profiler, and
     its parts alone — the fast epoch's one sampling call and its updates (100
     batches, or TransR's 1,888 chunks), the parity epoch's (sample, update)
-    pairs.  ``parity_batches`` below 100 cuts the parity runs to the epoch's
-    first batches (the main phase times TransR's whole parity epoch), and
-    ``profile_window`` profiles only the fast epoch's first that many
+    pairs.  ``profile_window`` profiles only the fast epoch's first that many
     updates, set against their own wall: the profiler's cost grows with the
     launches, to minutes for TransR's 1,888 chunks.  Ends with the seconds
     it took, and those of the two profiled runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from kb2e_tpu_torch import EmbeddingConfig, get_model
     from kb2e_tpu_torch.train import step
 
@@ -1106,21 +1215,6 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
             host.append((time.perf_counter() - t0) * 1e3)
         return out, float(np.median(card)), float(np.median(host))
 
-    def device_busy_ms(fn, what):
-        """The card's kernel and copy time during fn: the sum of the device
-        events' durations in a torch.profiler trace (0 when it has none);
-        prints the kernels that took most of it."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # Host ops carry their kernels' device time too: count device events only.
-        ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-        print(f"[timing] {model_name} {what}, device time by kernel: " + "; ".join(
-            f"{name[:60]} {ms:.3f} ms over {count}" for ms, count, name in ops[:5]), flush=True)
-        return sum(ms for ms, _, _ in ops)
-
     def idle(busy, wall):
         return f"{1 - busy / wall:.3f}" if busy > 0 else "not measured (no device time in the profile)"
 
@@ -1129,7 +1223,7 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
 
     def parity_epoch():
         p = params
-        for _ in range(parity_batches):
+        for _ in range(N_BATCHES):
             p, _ = train_step(p, gen, data)
         return p
 
@@ -1141,7 +1235,7 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
     _, parity_ms, parity_host_ms = timed(parity_epoch, reps=parity_reps)
     p_sample = p_update = 0.0
     p = params
-    for _ in range(parity_batches):
+    for _ in range(N_BATCHES):
         b, ms, _ = timed(lambda: step.sample_batch(gen, data, pcfg, TRAIN_BATCH))
         p_sample += ms
         (p, _), ms, _ = timed(lambda: model.sequential_update(p, b, pcfg))
@@ -1150,17 +1244,16 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
     if profile_window is None:
         busy_of, window_ms = "the epoch", fast_ms
         t_profiled = time.perf_counter()
-        fast_busy = device_busy_ms(lambda: runner(params, gen, data), "fast epoch")
+        fast_busy = device_busy_ms(lambda: runner(params, gen, data), f"{model_name} fast epoch")
     else:
         part = {k: v[:profile_window] for k, v in batches.items()}
         _, window_ms, _ = timed(lambda: runner.apply(params, part, data.n_entities), reps=fast_reps)
         busy_of = f"its first {profile_window} updates, {window_ms:.3f} ms alone (median of {fast_reps})"
         t_profiled = time.perf_counter()
         fast_busy = device_busy_ms(lambda: runner.apply(params, part, data.n_entities),
-                                   f"fast epoch's first {profile_window} updates")
+                                   f"{model_name} fast epoch's first {profile_window} updates")
     t_fast_profiled = time.perf_counter() - t_profiled
-    what = "parity epoch" if parity_batches == N_BATCHES else f"parity epoch's first {parity_batches} batches"
-    parity_busy = device_busy_ms(parity_epoch, what)
+    parity_busy = device_busy_ms(parity_epoch, f"{model_name} parity epoch")
     t_profiled = time.perf_counter() - t_profiled
     print(f"[timing] {model_name} fast epoch at B={TRAIN_BATCH} x {N_BATCHES}: {fast_ms:.3f} ms on the card's clock "
           f"({fast_host_ms:.3f} ms on the host's; medians of {fast_reps}), device busy {fast_busy:.3f} ms over "
@@ -1168,9 +1261,9 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
           f"{sample_ms:.3f} ms, "
           f"{next(iter(batches.values())).shape[0]} {'fused ' if runner.fused else ''}"
           f"{'chunk ' if runner.chunk else ''}updates {apply_ms:.3f} ms", flush=True)
-    print(f"[timing] {model_name} {what}: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms on "
+    print(f"[timing] {model_name} parity epoch: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms on "
           f"the host's; medians of {parity_reps}), device busy {parity_busy:.3f} ms, idle share "
-          f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {parity_batches} "
+          f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {N_BATCHES} "
           f"sequential updates {p_update:.3f} ms", flush=True)
     print(f"[timing] {model_name} breakdown took {time.perf_counter() - t_start:.1f} s, of it the profiled runs "
           f"{t_profiled:.1f} s (the fast epoch {t_fast_profiled:.1f} s)", flush=True)
@@ -1271,16 +1364,14 @@ def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
     records.append(transh_timing(ctx, results))
     took("the TransH update timing")
-    epoch_breakdown(ctx, "transh", dict(zip(TRANSH_KEYS, ctx["transh_args"][:3])), parity_reps=2)
+    epoch_breakdown(ctx, "transh", dict(zip(TRANSH_KEYS, ctx["transh_args"][:3])))
     lap = time.perf_counter()
     records.append(transr_timing(ctx, results))
     took("the TransR update timing")
-    # Three fast epochs of TransR (4-7 s each) where the others take five, a
-    # quarter of its parity epoch (some 9 s a run), and the profiler on an
-    # eighth of its fast epoch's 1,888 chunks (the whole took 4 minutes), to keep the smoke
-    # near half its time limit.
-    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, parity_reps=1,
-                    parity_batches=N_BATCHES // 4, profile_window=236)
+    # Three fast epochs of TransR (4-7 s each) where the others take five,
+    # and the profiler on an eighth of its fast epoch's 1,888 chunks (the
+    # whole took 4 minutes), to keep the smoke near half its time limit.
+    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, profile_window=236)
     return records
 
 

@@ -3,8 +3,9 @@
 Each source is compiled on its own, for ``sm_90a``, into a shared library
 with a plain C interface that the kernel's wrapper loads with ``ctypes``.
 The library lands in ``build/kernels/`` at the root of the checkout, at first
-use, under a name that carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is not.  nvcc's output, with
+use, under a name that carries a hash of the source, the headers of
+``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is not.  nvcc's output, with
 ptxas's register and spill report for each kernel, is kept beside the
 library as ``.log``.
 """
@@ -43,8 +44,10 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, build_dir: Path = BUILD_DIR) -> Path:
-    """Where the build of ``source`` with the current flags lives."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the build of ``source`` with the current flags lives: the hash
+    covers the source, the headers beside it and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir / f"{source.stem}_{digest}.so"
 
 

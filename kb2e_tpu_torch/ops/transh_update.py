@@ -18,16 +18,22 @@ One batch of the reference's hot loop (``transh/trainer.cpp:11-58``,
 * when h == t both deltas land on the one row, which is ball-normed twice
   (the second norm reading the first's result) and projected twice.
 
-* On a CUDA tensor :func:`transh_sequential_update` launches the kernel of
-  ``csrc/transh_update.cu`` (what bounds it and its design are noted there),
-  or raises.  It is compiled by :mod:`kb2e_tpu_torch.ops.cuda_build` at
-  first use and bound with ``ctypes``.
+* On a CUDA tensor :func:`transh_sequential_update` launches the kernels of
+  ``csrc/transh_update.cu`` (what bounds them and their design are noted
+  there), or raises: a decide pass, one block per sample, for the decisions,
+  the snapshot dots, x, sum_x and the loss; then, with each update's
+  predecessors on its rows from
+  :func:`kb2e_tpu_torch.ops.schedule.row_predecessors`, an update pass that
+  runs samples side by side across the SMs in the reference's per-row order.
+  They are compiled by :mod:`kb2e_tpu_torch.ops.cuda_build` at first use and
+  bound with ``ctypes``.
 * On a CPU tensor it runs :func:`transh_sequential_update_reference`, the
   plain PyTorch version.  It takes every sum over k in the kernel's order
   (:func:`kernel_order_sum`) and rounds every elementwise step as its own
   torch op, so on the card the kernel and the plain version agree bit for bit.
 
-``launch_counts`` counts the kernel's launches; only the launch path adds to it.
+``launch_counts`` counts the wrapper's calls on the card, one a batch (its
+three launches together); only the launch path adds to it.
 """
 
 from __future__ import annotations
@@ -40,12 +46,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from kb2e_tpu_torch.ops import cuda_build
+from kb2e_tpu_torch.ops import cuda_build, schedule
 
 KERNEL_NAME = "transh_update"
 SOURCE = cuda_build.CSRC / "transh_update.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
-MAX_K = 1024  # one coordinate per thread, one block
+MAX_K = 1024  # one coordinate per thread, one block a sample
 WARP = 32
 
 # Kernel launches by kernel name, added to only where a kernel is launched.
@@ -65,8 +71,11 @@ def build() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kb2e_transh_update.argtypes = [ptr] * 15 + [c_int] * 4 + [c_float] * 2 + [ptr]
-    lib.kb2e_transh_update.restype = c_int
+    lib.kb2e_transh_decide.argtypes = [ptr] * 13 + [c_int] * 3 + [c_float, ptr]
+    lib.kb2e_transh_apply.argtypes = [ptr] * 14 + [c_int] * 4 + [c_float, ptr]
+    lib.kb2e_transh_blocks_per_sm.argtypes = [c_int, c_int, ptr]
+    for fn in (lib.kb2e_transh_decide, lib.kb2e_transh_apply, lib.kb2e_transh_blocks_per_sm):
+        fn.restype = c_int
     lib.kb2e_cuda_error_string.argtypes = [c_int]
     lib.kb2e_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -256,33 +265,52 @@ def transh_sequential_update(
             f"transh_sequential_update: k = {k} must lie in [1, {MAX_K}], N·k and R·k below 2^31, "
             f"and max_iters = {max_iters} must not be negative"
         )
-    if b:
-        # Out-of-range rows would be read and written outside the tables.
-        ids = torch.stack([ph, pt, nh, nt])
-        lo, hi, rlo, rhi = torch.stack([ids.min(), ids.max(), r.min(), r.max()]).tolist()
-        if lo < 0 or hi >= n or rlo < 0 or rhi >= n_rel:
-            raise ValueError(
-                f"transh_sequential_update: entity ids in [{lo}, {hi}] or relation ids in [{rlo}, {rhi}] "
-                f"fall outside [0, {n}) / [0, {n_rel})"
-            )
+    schedule.check_ids("transh_sequential_update", ph, pt, r, nh, nt, n, n_rel)
 
     ent_out, rel_out, norm_out = entity.clone(), relation.clone(), norm.clone()
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     viol = torch.empty(b, dtype=torch.int32, device=dev)
     trips = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    # Each sample's x_p, x_n, then hs_p, ts_p, hs_n, ts_n, sum_x_p, sum_x_n.
+    xs = torch.empty((b, 2 * k + 6), dtype=torch.float32, device=dev)
+    terms = torch.empty(b, dtype=torch.float32, device=dev)  # each sample's margin + e_p − e_n
+    order = torch.zeros(b + 1, dtype=torch.int32, device=dev)  # the done flags, then the ticket
     lib = _library()
-    code = lib.kb2e_transh_update(
+    index = _device_index(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check(lib, lib.kb2e_transh_decide(
         entity.data_ptr(), relation.data_ptr(), norm.data_ptr(),
-        ent_out.data_ptr(), rel_out.data_ptr(), norm_out.data_ptr(),
         ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(), valid.data_ptr(),
-        loss.data_ptr(), viol.data_ptr(), trips.data_ptr(),
-        k, b, max_iters, dev.index if dev.index is not None else torch.cuda.current_device(),
-        float(learning_rate), float(margin), torch.cuda.current_stream(dev).cuda_stream,
-    )
+        xs.data_ptr(), terms.data_ptr(), viol.data_ptr(), loss.data_ptr(),
+        k, b, index, float(margin), stream,
+    ))
+    decided = viol.to(torch.bool)
+    pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, n), decided)
+    _check(lib, lib.kb2e_transh_apply(
+        entity.data_ptr(), ent_out.data_ptr(), rel_out.data_ptr(), norm_out.data_ptr(),
+        ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(),
+        viol.data_ptr(), xs.data_ptr(), pred.data_ptr(), order.data_ptr(), trips.data_ptr(),
+        k, b, max_iters, index, float(learning_rate), stream,
+    ))
+    launch_counts[KERNEL_NAME] += 1
+    return ent_out, rel_out, norm_out, loss, decided, trips
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _check(lib: ctypes.CDLL, code: int) -> None:
     if code != 0:
         raise RuntimeError(
             f"TransH sequential-update kernel launch failed: {lib.kb2e_cuda_error_string(code).decode()} "
             f"(cuda error {code})"
         )
-    launch_counts[KERNEL_NAME] += 1
-    return ent_out, rel_out, norm_out, loss, viol.to(torch.bool), trips
+
+
+def resident_blocks_per_sm(k: int, device: torch.device | None = None) -> int:
+    """Blocks of the update pass that fit on one SM of ``device`` at once, at width k."""
+    lib = _library()
+    per_sm = ctypes.c_int(0)
+    _check(lib, lib.kb2e_transh_blocks_per_sm(k, _device_index(torch.device(device or "cuda")), ctypes.byref(per_sm)))
+    return per_sm.value

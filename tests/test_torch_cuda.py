@@ -1,6 +1,10 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5).
+TransH update (K4) and the sequential TransR update (K5).  K4 and K5 run
+samples that share no row side by side; batches built to stress that
+schedule (a chain of the whole batch, no shared row at all, fewer samples
+than resident blocks, no update at all) hold them bit-equal to their plain
+versions at widths up to their largest.
 
 Marked ``cuda``: without a CUDA device every test here skips.  This file
 imports neither jax nor kb2e_tpu, so it also runs where only the port is
@@ -16,7 +20,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import get_model
-from kb2e_tpu_torch.ops import distances, rank_count, transe_update, transh_update, transr_update
+from kb2e_tpu_torch.ops import distances, rank_count, schedule, transe_update, transh_update, transr_update
 
 pytestmark = pytest.mark.cuda
 
@@ -382,3 +386,100 @@ def test_transr_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
         assert set(out) == set(params)
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transr").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
+
+
+STRESS = ("one relation", "distinct rows", "one entity", "smaller than the grid", "all invalid")
+
+
+def _stress_case(model, kind, k, b, seed, dev):
+    """Tables as _transh_case's or _transr_case's, and a batch of one
+    ``kind``: every sample on relation 0 (one chain of the whole batch); no
+    row shared by two samples; entity 0 in every sample (in h, t, h', t' in
+    turn); 3 valid samples whose corrupted triple is the positive one, so
+    all update, fewer than the update pass's resident blocks; or no valid
+    sample."""
+    rng = np.random.default_rng(seed)
+    if kind == "smaller than the grid":
+        b = 3
+    n, n_rel = (4 * b + 8, b + 3) if kind == "distinct rows" else (max(40, b), 6)
+    ent, rel = rng.normal(size=(n, k)), rng.normal(size=(n_rel, k))
+    if model == "transh":
+        ent, rel = ent * 0.4, rel * 0.4
+        w = rng.normal(size=(n_rel, k))
+        w /= np.linalg.norm(w, axis=1, keepdims=True)
+    else:
+        ent /= np.linalg.norm(ent, axis=1, keepdims=True)
+        rel /= np.linalg.norm(rel, axis=1, keepdims=True)
+        w = np.eye(k) + rng.normal(size=(n_rel, k, k)) * 0.15
+    if kind == "distinct rows":
+        ph, pt, nh, nt = rng.permutation(n)[:4 * b].reshape(4, b).astype(np.int32)
+        r = rng.permutation(n_rel)[:b].astype(np.int32)
+    else:
+        ph, pt, nh, nt = (rng.integers(0, n, b).astype(np.int32) for _ in range(4))
+        r = rng.integers(0, n_rel, b).astype(np.int32)
+    if kind == "one relation":
+        r[:] = 0
+    if kind == "smaller than the grid":  # e_n == e_p: every valid sample updates
+        nh, nt = ph.copy(), pt.copy()
+    if kind == "one entity":
+        for j, ids in enumerate((ph, pt, nh, nt)):
+            ids[j::4] = 0
+    valid = np.full(b, kind != "all invalid") if kind in ("all invalid", "smaller than the grid") else rng.random(b) > 0.1
+    tensors = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (ent, rel, w)]
+    tensors += [torch.from_numpy(a).to(dev) for a in (ph, pt, r, nh, nt, valid)]
+    return tensors
+
+
+def _assert_stress_result(kind, args, got, want):
+    """Bit for bit: decisions, trips, loss and all three tables; and the
+    schedule the batch was built for."""
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+    assert float(got[3]) == float(want[3])
+    for table, plain in zip(got[:3], want[:3]):
+        assert torch.equal(table, plain)
+    n_viol = int(got[4].sum())
+    if kind == "all invalid":
+        assert n_viol == 0 and all(torch.equal(g, x) for g, x in zip(got[:3], args[:3]))
+        return
+    assert n_viol > 0
+    ph, pt, r, nh, nt = args[3:8]
+    pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, args[0].shape[0]), got[4])
+    depth = schedule.chain_levels(pred, got[4]).max()
+    if kind in ("one relation", "one entity"):
+        assert depth == n_viol
+    elif kind == "distinct rows":
+        assert depth == 1
+
+
+@pytest.mark.parametrize("k,b", [(12, 256), (33, 192), (100, 96), (transh_update.MAX_K, 24)])
+@pytest.mark.parametrize("kind", STRESS)
+def test_transh_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b):
+    args = _stress_case("transh", kind, k, b, seed=k + b, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, max_iters=16)
+    transh_update.reset_launch_counts()
+    got = transh_update.transh_sequential_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    _assert_stress_result(kind, args, got, transh_update.transh_sequential_update_reference(*args, **kw))
+
+
+# The plain version of K5 takes some thousands of small launches a sample,
+# more at larger k: the batches shrink as k grows.
+@pytest.mark.parametrize("k,b", [(12, 96), (33, 64), (100, 24), (transr_update.MAX_K, 6)])
+@pytest.mark.parametrize("kind", STRESS)
+@pytest.mark.parametrize("l1", [True, False])
+def test_transr_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, l1):
+    args = _stress_case("transr", kind, k, b, seed=k + b, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, l1=l1, max_iters=16)
+    transr_update.reset_launch_counts()
+    got = transr_update.transr_sequential_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(transr_update.launch_counts) == {transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
+    _assert_stress_result(kind, args, got, transr_update.transr_sequential_update_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("module,k", [(transh_update, 100), (transh_update, transh_update.MAX_K),
+                                      (transr_update, 100), (transr_update, transr_update.MAX_K)])
+def test_update_pass_fits_several_blocks_per_sm_at_fb15k_width(cuda, module, k):
+    per_sm = module.resident_blocks_per_sm(k)
+    assert per_sm >= (1 if k == module.MAX_K else 4)
