@@ -14,12 +14,13 @@ non-zero exit on any failure:
 3. kernels  — each kernel against its plain PyTorch version at FB15k width:
               the rank count (N = 14,951, k = 100, B = 256 and a ragged 250;
               L1 and L2), exact on dyadic inputs and at most 0.1 % of
-              queries off by at most 2 on TransE-init tables; the sequential
-              update (N = 14,951, R = 1,345, k = 100, B = 4,831, a batch of
-              the port's sampler with 1/8 of its rows h == t; L1 and L2),
-              equal decisions and loss on dyadic snapshots and on TransE-init
-              tables equal decisions, loss within rel 1e-5, tables within
-              atol 1e-5; the TransH sequential update (the same width, a
+              queries off by at most 2 on TransE-init tables; the TransE
+              sequential update (N = 14,951, R = 1,345, k = 100, B = 4,831, a
+              batch of the port's sampler with 1/8 of its positives h == t
+              and the next 1/8 of its corrupted triples h' == t'; L1 and L2),
+              equal to its plain version bit for bit on dyadic and on
+              TransE-init snapshots: decisions, loss and both tables; the
+              TransH sequential update (the same width, a
               whole sampler batch of 4,831 with 1/8 of its positives h == t
               and the next 1/8 of its corrupted triples h' == t', on
               TransH-init tables at each of K4_SETTINGS), equal to its plain
@@ -29,11 +30,12 @@ non-zero exit on any failure:
               8th h' == t', on TransR-init tables at each of K5_SETTINGS, L1
               and L2), equal bit for bit to its plain version, which runs on
               the host's CPU in one process per setting while the card checks
-              the other kernels; both updates also bit for bit on the
+              the other kernels; all three updates also bit for bit on the
               STRESS batches of their schedule (stress_batches: one chain of
               the whole batch through one relation or one entity, no shared
-              row, fewer samples than resident blocks, no valid sample) at
-              the main path's setting;
+              row, fewer samples than resident blocks, no valid sample) and
+              on a sampler batch of a skewed graph (skewed_batch) at the
+              main path's setting (TransE: L1 and L2);
 4. main     — the main paths on an FB15k-shaped data directory (bench.py's
               configuration), each with the launch counts set to 0 just
               before it and read just after:
@@ -80,12 +82,12 @@ non-zero exit on any failure:
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
               records count the launches of every eval path (TransE, both
-              TransH flags, TransR).  The TransH and TransR updates are also
-              timed on each STRESS batch, beside its longest chain of
-              samples that share a row (from the schedule's predecessors)
-              and its count of updates, with the update pass's resident
-              blocks per SM, the device time of one call by kernel, and the
-              wrapper's id check alone.
+              TransH flags, TransR).  The TransE, TransH and TransR updates
+              are also timed on each STRESS batch and on the skewed batch,
+              beside its longest chain of samples that share a row (from the
+              schedule's predecessors) and its count of updates, with the
+              update pass's resident blocks per SM, the device time of one
+              call by kernel, and the wrapper's id check alone.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -155,12 +157,19 @@ K4_SETTINGS = ((0.001, 16), (0.05, 2), (0.05, 1))
 # trip in Python, tens of ms a sample, so it runs on the host's CPU, one
 # process per setting, while the card checks the other kernels.
 K5_SETTINGS = K4_SETTINGS
-# Batches that stress the TransH and TransR updates' schedule
-# (stress_batches), checked and timed at the main path's setting.
+# Batches that stress the sequential updates' schedule (stress_batches),
+# checked and timed at the main path's setting.
 STRESS = ("one relation", "one entity", "distinct rows", "smaller than the grid", "all invalid")
 IDX_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
 TRANSH_KEYS = ("entity", "relation", "norm")
 TRANSR_KEYS = ("entity", "relation", "proj")
+# A skewed graph at FB15k's entity and relation counts (skewed_batch):
+# data/synthetic.py::skewed_kg(14,951, 1,345, 120,000, seed=1).  Only the
+# triple count is cut, from FB15k's 483,142: generation grows about as
+# |T|^1.8 (12.5 s at 120,000 on one core, over 150 s at 483,142), and the
+# shares that set the longest chain do not depend on |T| (the top relation
+# holds 6.4 % of the triples).
+SKEWED_KG = (N_ENTITIES, N_RELATIONS, 120_000, 1)
 # Unrounded inputs: sums taken in another order may move an energy across a
 # tie, so a few counts may differ; dyadic inputs must match exactly.
 MAX_QUERY_SHARE_OFF, MAX_COUNT_OFF = 0.001, 2
@@ -222,10 +231,11 @@ def build_phase():
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     # ptxas's report per kernel and template; the template's bool is kL2 for
-    # the rank count and kL1 for the TransE update and the TransR decide
-    # pass; the other kernels have no template (the TransH update is L1
-    # only; the update passes and the loss kernel read x, not the distance).
-    distance_of = {"rank_count_kernel": ("L1", "L2"), "transe_update_kernel": ("L2", "L1"),
+    # the rank count and kL1 for the TransE and TransR decide passes; the
+    # other kernels have no template (the TransH update is L1 only; the
+    # TransH and TransR update passes and the loss kernel read x, not the
+    # distance; the TransE update pass takes it as an argument).
+    distance_of = {"rank_count_kernel": ("L1", "L2"), "transe_decide_kernel": ("L2", "L1"),
                    "transr_decide_kernel": ("L2", "L1")}
     for path in paths:
         entry = "?"
@@ -303,16 +313,43 @@ def kernels_phase(tables, transh, transr, data_dir, work):
     data = step.DeviceData.from_triple_set(triples.load_dataset(data_dir).train, "cuda")
     print(f"[kernels] loaded the FB15k-shaped training graph and built its cuckoo index in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    batches, paths = transr_batches(transr, data, work)
+    skewed = skewed_batch()
+    batches, paths = transr_batches(transr, data, work, skewed)
     jobs = [("sampler", l1, lr, cap) for l1 in (True, False) for lr, cap in K5_SETTINGS]
-    jobs += [(kind, True, *K5_SETTINGS[0]) for kind in STRESS]
+    jobs += [(kind, True, *K5_SETTINGS[0]) for kind in (*STRESS, "skewed")]
     # Spawned, not forked: the parent holds a CUDA context.
     with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=mp.get_context("spawn")) as pool:
         plain = {job: pool.submit(transr_plain_job, paths["tables"], paths[job[0]], *job[1:]) for job in jobs}
-        ctx = dict(rank_worst=rank_kernel_checks(tables), train_data=data, **update_kernel_checks(tables, data))
-        ctx.update(transh_kernel_checks(transh, data))
+        ctx = dict(rank_worst=rank_kernel_checks(tables), train_data=data, skewed=skewed)
+        ctx.update(update_kernel_checks(tables, data, skewed))
+        ctx.update(transh_kernel_checks(transh, data, skewed))
         ctx.update(transr_kernel_checks(transr, batches, plain))
     return ctx
+
+
+def skewed_batch():
+    """A sampler batch of 4,831 (bern, the port's sampler) from an
+    FB15k-shaped ``skewed_kg`` (SKEWED_KG): its most frequent relations set
+    the longest chain of samples that share a row."""
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.data import synthetic, triples
+    from kb2e_tpu_torch.train import step
+
+    n_ent, n_rel, n_triples, seed = SKEWED_KG
+    t0 = time.perf_counter()
+    h, t, r = synthetic.skewed_kg(n_ent, n_rel, n_triples, seed=seed)
+    made = time.perf_counter() - t0
+    data = step.DeviceData.from_triple_set(triples.TripleSet.from_arrays(h, t, r, n_ent, n_rel), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    batch = step.sample_batch(gen, data, EmbeddingConfig(embedding_size=K, method=1), TRAIN_BATCH)
+    idx = [batch[key] for key in IDX_KEYS]
+    top = np.bincount(r, minlength=n_rel).max()
+    in_batch = int(torch.bincount(batch["r"].long(), minlength=n_rel).max())
+    print(f"[kernels] skewed_kg{SKEWED_KG}: {h.shape[0]} distinct triples in {made:.1f} s, the top relation "
+          f"{top} of them ({top / h.shape[0]:.2%}); a sampler batch of {TRAIN_BATCH} holds {in_batch} samples of "
+          f"its most frequent relation, {int((idx[1] == idx[0]).sum())} h == t, "
+          f"{int((~batch['valid']).sum())} invalid", flush=True)
+    return idx
 
 
 def rank_kernel_checks(tables):
@@ -344,9 +381,14 @@ def rank_kernel_checks(tables):
     return worst
 
 
-def update_kernel_checks(tables, data):
-    """The sequential-update kernel against its plain version at FB15k width,
-    on a batch of the port's sampler over the FB15k-shaped training graph."""
+def update_kernel_checks(tables, data, skewed):
+    """The TransE sequential-update kernel against its plain version at
+    FB15k width, bit for bit, L1 and L2: on a batch of the port's sampler
+    over the FB15k-shaped training graph with dyadic and with TransE-init
+    snapshots, and on the stress batches made from it and the skewed batch
+    with TransE-init snapshots.  Returns the inputs of the timing phase, the
+    largest table difference, and the plain version's time on the sampler
+    batch (TransE-init)."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import transe_update
@@ -360,7 +402,8 @@ def update_kernel_checks(tables, data):
     eighth = TRAIN_BATCH // 8
     batch["pt"][:eighth] = batch["ph"][:eighth]
     batch["nt"][eighth:2 * eighth] = batch["nh"][eighth:2 * eighth]
-    idx = [batch[key] for key in IDX_KEYS]
+    batches = {"sampler": {key: batch[key] for key in IDX_KEYS}, **stress_batches(batch, SEED + 8)}
+    batches["skewed"] = dict(zip(IDX_KEYS, skewed))
     print(f"[kernels] sampled a batch of {TRAIN_BATCH} on the FB15k-shaped graph in "
           f"{time.perf_counter() - t0:.1f} s; {int((~batch['valid']).sum())} invalid", flush=True)
 
@@ -369,42 +412,40 @@ def update_kernel_checks(tables, data):
         "dyadic": [torch.from_numpy(dyadic(rng, (n, K))).to(dev) for n in (N_ENTITIES, N_RELATIONS)],
         "TransE-init": [tables["entity"], tables["relation"]],
     }
-    worst = {}
+    checks = [("sampler", what) for what in snapshots] + [(kind, "TransE-init") for kind in (*STRESS, "skewed")]
+    worst, plain_ms = {}, {}
     for l1 in (True, False):
         name = transe_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
-        for what, (ent, rel) in snapshots.items():
-            args = (ent, rel, *idx)
+        for kind, what in checks:
+            idx = [batches[kind][key] for key in IDX_KEYS]
+            args = (*snapshots[what], *idx)
             kw = dict(learning_rate=0.001, margin=1.0, l1=l1)
             got = transe_update.transe_sequential_update(*args, **kw)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
+            start.record()
             want = transe_update.transe_sequential_update_reference(*args, **kw)
-            off = (got[3] != want[3]).nonzero()[:, 0].tolist()
-            for i in off[:10]:
-                print(f"[kernels] {name} {what}: sample {i} {[int(x[i]) for x in idx]} decided "
-                      f"{bool(got[3][i])} on the card, {bool(want[3][i])} in the plain version", flush=True)
-            check(not off, f"{name} {what}: {len(off)} update decisions differ")
-            err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
-            loss, want_loss = float(got[2]), float(want[2])
-            if what == "dyadic":  # exact energies in any order: the same loss
-                check(loss == want_loss, f"{name} {what}: loss {loss!r} != {want_loss!r}")
-            else:
-                check(abs(loss - want_loss) <= 1e-5 * abs(want_loss), f"{name} {what}: loss {loss} vs {want_loss}")
-            check(err <= 1e-5, f"{name} {what}: tables differ by {err}")
-            worst[name] = max(worst.get(name, 0.0), err)
-            print(f"[kernels] {name} N={N_ENTITIES} R={N_RELATIONS} k={K} B={TRAIN_BATCH} {what}: "
-                  f"{int(got[3].sum())} updates, 0 decisions differ, loss {loss:.6f} vs {want_loss:.6f}, "
-                  f"max table difference {err:.3g}", flush=True)
-    return dict(update_worst=worst, update_args=(tables["entity"], tables["relation"], *idx))
+            stop.record()
+            torch.cuda.synchronize()
+            plain_ms[name, kind, what] = start.elapsed_time(stop)
+            worst[name] = max(worst.get(name, 0.0), check_update_equal(f"{name} {what}", idx, got, want, m=2))
+            print(f"[kernels] {name} N={N_ENTITIES} R={N_RELATIONS} k={K} {describe_batch(kind, idx)} on {what} "
+                  f"tables: {int(got[3].sum())} updates; decisions, loss ({float(got[2]):.6f}) and both tables equal "
+                  f"to the plain version's bit for bit; plain version {plain_ms[name, kind, what]:.1f} ms", flush=True)
+    sampler = [batches["sampler"][key] for key in IDX_KEYS]
+    return dict(update_worst=worst, update_args=(tables["entity"], tables["relation"], *sampler),
+                update_stress={kind: [batches[kind][key] for key in IDX_KEYS] for kind in STRESS},
+                update_plain_ms={name: plain_ms[name, "sampler", "TransE-init"] for name in worst})
 
 
-def transh_kernel_checks(transh, data):
+def transh_kernel_checks(transh, data, skewed):
     """The TransH sequential-update kernel against its plain version at FB15k
     width on TransH-init tables, bit for bit, on a whole sampler batch of
-    4,831 at each of K4_SETTINGS, and on the stress batches made from it at
-    the main path's setting, K4_SETTINGS[0].  Returns the inputs of the
-    timing phase (the same tables and batches), the largest table
-    difference, and the plain version's time on the sampler batch at the
-    main path's setting."""
+    4,831 at each of K4_SETTINGS, and on the stress batches made from it and
+    the skewed batch at the main path's setting, K4_SETTINGS[0].  Returns
+    the inputs of the timing phase (the same tables and batches), the
+    largest table difference, and the plain version's time on the sampler
+    batch at the main path's setting."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.ops import transh_update
     from kb2e_tpu_torch.train import step
@@ -415,8 +456,9 @@ def transh_kernel_checks(transh, data):
     eighth = TRAIN_BATCH // 8
     batch["pt"][:eighth] = batch["ph"][:eighth]
     batch["nt"][eighth:2 * eighth] = batch["nh"][eighth:2 * eighth]
-    batches = {"sampler": batch, **stress_batches(batch, SEED + 5)}
-    checks = [("sampler", lr, cap) for lr, cap in K4_SETTINGS] + [(kind, *K4_SETTINGS[0]) for kind in STRESS]
+    batches = {"sampler": batch, **stress_batches(batch, SEED + 5), "skewed": dict(zip(IDX_KEYS, skewed))}
+    checks = [("sampler", lr, cap) for lr, cap in K4_SETTINGS]
+    checks += [(kind, *K4_SETTINGS[0]) for kind in (*STRESS, "skewed")]
 
     tables = [transh[key] for key in TRANSH_KEYS]
     name = transh_update.KERNEL_NAME
@@ -473,34 +515,38 @@ def describe_batch(kind: str, idx) -> str:
     if kind == "sampler":
         return (f"B={idx[0].shape[0]} (a sampler batch; {int((idx[1] == idx[0]).sum())} h == t, "
                 f"{int((idx[4] == idx[3]).sum())} h' == t')")
+    if kind == "skewed":
+        return f"B={idx[0].shape[0]} (a sampler batch of skewed_kg{SKEWED_KG})"
     return f"B={idx[0].shape[0]} ({kind})"
 
 
-def check_update_equal(what: str, idx, got, want, cap: int) -> float:
-    """K4's or K5's outputs against their plain version's, bit for bit:
-    decisions, projector trips, loss and all three tables; at a cap of 1
-    some projector call must have reached it.  Returns the largest table
-    difference (0)."""
-    off = (got[4].cpu() != want[4].cpu()).nonzero()[:, 0].tolist()
+def check_update_equal(what: str, idx, got, want, cap: int | None = None, m: int = 3) -> float:
+    """An update's outputs (its m tables, the loss, the decisions, then K4's
+    and K5's projector trips) against its plain version's, bit for bit; at a
+    cap of 1 some projector call must have reached it.  Returns the largest
+    table difference (0)."""
+    viol, want_viol = got[m + 1].cpu(), want[m + 1].cpu()
+    off = (viol != want_viol).nonzero()[:, 0].tolist()
     for i in off[:10]:
-        print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(got[4][i])} on the card, "
-              f"{bool(want[4][i])} in the plain version", flush=True)
+        print(f"[kernels] {what}: sample {i} {[int(x[i]) for x in idx]} decided {bool(viol[i])} on the card, "
+              f"{bool(want_viol[i])} in the plain version", flush=True)
     check(not off, f"{what}: {len(off)} update decisions differ")
-    check(torch.equal(got[5].cpu(), want[5].cpu()), f"{what}: projector trips differ")
-    check(float(got[3]) == float(want[3]), f"{what}: loss {float(got[3])!r} != {float(want[3])!r}")
-    pairs = [(g.cpu(), w.cpu()) for g, w in zip(got[:3], want[:3])]
+    check(all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got[m + 2:], want[m + 2:])),
+          f"{what}: projector trips differ")
+    check(float(got[m]) == float(want[m]), f"{what}: loss {float(got[m])!r} != {float(want[m])!r}")
+    pairs = [(g.cpu(), w.cpu()) for g, w in zip(got[:m], want[:m])]
     rows_off = [int((g != w).reshape(g.shape[0], -1).any(dim=1).sum()) for g, w in pairs]
-    check(rows_off == [0, 0, 0], f"{what}: rows differ (entity, relation, weights): {rows_off}")
-    if cap == 1 and bool(got[4].any()):
+    check(rows_off == [0] * m, f"{what}: rows differ (entity, relation[, weights]): {rows_off}")
+    if cap == 1 and bool(viol.any()):
         check(int(got[5][:, 1].sum()) > 0, f"{what}: no projector call reached the cap")
     return max(float((g - w).abs().max()) for g, w in pairs)
 
 
-def transr_batches(transr, data, work: str):
+def transr_batches(transr, data, work: str, skewed):
     """A sampler batch of 4,831 for the TransR update (every 8th sample
-    h == t, every 8th from the second h' == t') and the stress batches made
-    from it; and files holding the TransR-init tables and each batch for the
-    plain version's processes."""
+    h == t, every 8th from the second h' == t'), the stress batches made
+    from it and the skewed batch; and files holding the TransR-init tables
+    and each batch for the plain version's processes."""
     from kb2e_tpu_torch import EmbeddingConfig
     from kb2e_tpu_torch.train import step
 
@@ -508,7 +554,7 @@ def transr_batches(transr, data, work: str):
     batch = step.sample_batch(gen, data, EmbeddingConfig(embedding_size=K, method=1), TRAIN_BATCH)
     batch["pt"][0::8] = batch["ph"][0::8]
     batch["nt"][1::8] = batch["nh"][1::8]
-    batches = {"sampler": batch, **stress_batches(batch, SEED + 6)}
+    batches = {"sampler": batch, **stress_batches(batch, SEED + 6), "skewed": dict(zip(IDX_KEYS, skewed))}
     paths = {"tables": os.path.join(work, "k5_tables.npz")}
     np.savez(paths["tables"], **{key: transr[key].cpu().numpy() for key in TRANSR_KEYS})
     for kind, b in batches.items():
@@ -537,10 +583,11 @@ def transr_kernel_checks(transr, batches, plain):
     """The TransR sequential-update kernel against its plain version at FB15k
     width on TransR-init tables, bit for bit, against the CPU processes'
     results (``plain``: one future per (batch, l1, lr, cap)): the whole
-    sampler batch of 4,831 at every setting, the stress batches at the main
-    path's (L1, K5_SETTINGS[0]).  Returns the inputs of the timing phase
-    (the same tables and batches), the largest table difference, and the
-    plain version's time on the sampler batch at the main path's setting."""
+    sampler batch of 4,831 at every setting, the stress batches and the
+    skewed batch at the main path's (L1, K5_SETTINGS[0]).  Returns the
+    inputs of the timing phase (the same tables and batches), the largest
+    table difference, and the plain version's time on the sampler batch at
+    the main path's setting."""
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import transr_update
 
@@ -1021,19 +1068,21 @@ def device_busy_ms(fn, what: str, top: int = 5) -> float:
 
 
 def schedule_timing(name: str, module, update, args, stress: dict, kw: dict, reps: int) -> float:
-    """One update wrapper (K4's or K5's) per launch on the sampler batch and
-    on each stress batch, each with its longest chain of predecessors and
-    its count of updates; the update pass's resident blocks; the device time
-    of one call on the sampler batch by kernel; and the wrapper's id check
-    (one host sync) alone.  Returns the sampler batch's ms per launch."""
+    """One update wrapper (K3's, K4's or K5's) per launch on the sampler
+    batch and on each batch of ``stress`` (the stress batches and the
+    skewed batch), each with its longest chain of predecessors and its count
+    of updates; the update pass's resident blocks; the device time of one
+    call on the sampler batch by kernel; and the wrapper's id check (one
+    host sync) alone.  Returns the sampler batch's ms per launch."""
     from kb2e_tpu_torch.ops import schedule
 
-    tables, idx = args[:3], args[3:]
+    m = len(args) - len(IDX_KEYS)  # the tables; the decisions follow them and the loss
+    tables, idx = args[:m], args[m:]
     times = {}
     for kind, batch_idx in (("sampler", idx), *stress.items()):
         call = (*tables, *batch_idx)
         times[kind] = time_ms(lambda: update(*call, **kw), reps, warmup=1)
-        decided = update(*call, **kw)[4]
+        decided = update(*call, **kw)[m + 1]
         ph, pt, r, nh, nt = batch_idx[:5]
         pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, N_ENTITIES), decided)
         depth = int(schedule.chain_levels(pred, decided).max(initial=0))
@@ -1064,8 +1113,8 @@ def transh_timing(ctx, results):
     lr, cap = K4_SETTINGS[0]
     kw = dict(learning_rate=lr, margin=1.0, max_iters=cap)
     args = ctx["transh_args"]
-    ms = schedule_timing(name, transh_update, transh_update.transh_sequential_update, args, ctx["transh_stress"],
-                         kw, reps=5)
+    ms = schedule_timing(name, transh_update, transh_update.transh_sequential_update, args,
+                         {**ctx["transh_stress"], "skewed": ctx["skewed"]}, kw, reps=5)
     plain_ms = ctx["transh_plain_ms"]
     out = transh_update.transh_sequential_update(*args, **kw)
     n_updates, (fired, capped) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
@@ -1133,8 +1182,8 @@ def transr_timing(ctx, results):
     lr, cap = K5_SETTINGS[0]
     kw = dict(learning_rate=lr, margin=1.0, l1=True, max_iters=cap)
     args = ctx["transr_args"]
-    ms = schedule_timing(name, transr_update, transr_update.transr_sequential_update, args, ctx["transr_stress"],
-                         kw, reps=5)
+    ms = schedule_timing(name, transr_update, transr_update.transr_sequential_update, args,
+                         {**ctx["transr_stress"], "skewed": ctx["skewed"]}, kw, reps=5)
     out = transr_update.transr_sequential_update(*args, **kw)
     n_updates, (fired, capped) = int(out[4].sum()), (int(x) for x in out[5].sum(0))
     b_ms, b_by = transr_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_updates, fired, capped)
@@ -1270,25 +1319,29 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
 
 
 def update_timing(ctx, results):
+    """The TransE update per launch at B 4,831 on TransE-init tables, L1 and
+    L2, through schedule_timing, beside its plain version on the same inputs
+    (timed in the kernels phase) and the bound."""
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import transe_update
 
     records = []
     args = ctx["update_args"]
+    stress = {**ctx["update_stress"], "skewed": ctx["skewed"]}
     for l1 in (True, False):
         distance = Distance.L1 if l1 else Distance.L2
         name = transe_update.KERNEL_NAMES[distance]
         kw = dict(learning_rate=0.001, margin=1.0, l1=l1)
-        ms = time_ms(lambda: transe_update.transe_sequential_update(*args, **kw), 10)
-        plain_ms = time_ms(lambda: transe_update.transe_sequential_update_reference(*args, **kw), 2, warmup=1)
+        ms = schedule_timing(name, transe_update, transe_update.transe_sequential_update, args, stress, kw, reps=10)
+        plain_ms = ctx["update_plain_ms"][name]
         n_updates = int(transe_update.transe_sequential_update(*args, **kw)[3].sum())
         b_ms, b_by = update_bound_ms(N_ENTITIES, N_RELATIONS, K, TRAIN_BATCH, n_updates)
         epoch = results[name]["records"][0]
         print(f"[timing] {name} B={TRAIN_BATCH} N={N_ENTITIES} R={N_RELATIONS} k={K}: kernel {ms:.4f} ms per launch "
-              f"(wrapper: id check, table copies, launch), plain {plain_ms:.4f} ms, library none, bound "
-              f"{b_ms:.4f} ms ({b_by}; the sample chain is latency-bound), {n_updates} updates; parity epoch "
-              f"{epoch['wall_s']:.3f} s over {N_BATCHES} launches, {epoch['triples_per_s']:.0f} triples/s",
-              flush=True)
+              f"(wrapper: id check, table copies, three launches and the schedule), plain {plain_ms:.4f} ms (one "
+              f"run, on the card), library none, bound {b_ms:.4f} ms ({b_by}; the chains of samples are "
+              f"latency-bound), {n_updates} updates; parity epoch {epoch['wall_s']:.3f} s over {N_BATCHES} launches, "
+              f"{epoch['triples_per_s']:.0f} triples/s", flush=True)
         records.append({
             "name": name,
             "route": "cuda",

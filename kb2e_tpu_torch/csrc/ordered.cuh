@@ -1,7 +1,7 @@
-// What the sequential-update kernels of transh_update.cu and transr_update.cu
-// share: the block reduction each sample's arithmetic is built on, and the
-// schedule that runs independent samples side by side in the reference's
-// per-row order.
+// What the sequential-update kernels of transe_update.cu, transh_update.cu
+// and transr_update.cu share: the block reduction each sample's arithmetic
+// is built on, and the schedule that runs independent samples side by side
+// in the reference's per-row order.
 //
 // The schedule.  A sample reads and writes only its own rows of the output
 // tables (h, t, h', t', and its relation's rows), so two samples that share

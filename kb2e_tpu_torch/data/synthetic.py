@@ -3,11 +3,13 @@
 The reference ships no data, so tests and ``chip_smoke.py`` run on generated
 KGs: :func:`random_kg` draws uniform random triples, :func:`planted_kg`
 samples them from a planted TransE ground truth (so learning shows in the
-metrics), and :func:`write_kg_dir` writes them as a reference-layout
+metrics), :func:`skewed_kg` adds FB15k's skew (Zipf-popular entities and
+relations, a mix of 1-1, 1-N, N-1 and N-N relations), and
+:func:`write_kg_dir` writes them as a reference-layout
 directory (entity2id.txt / relation2id.txt / train|valid|test.txt,
 common/constants.h:19-23).  Same seed, same bytes as
-``kb2e_tpu.data.synthetic``.  The skewed and compositional generators come
-with the slices that need them.
+``kb2e_tpu.data.synthetic``.  The compositional generator comes with the
+slice that needs it.
 """
 
 from __future__ import annotations
@@ -84,6 +86,95 @@ def planted_kg(
         pick = rng.integers(0, neighbourhood, nn.shape[0])
         t[s : s + chunk] = nn[np.arange(nn.shape[0]), pick]
     return _dedup(h.astype(np.int32), t.astype(np.int32), r.astype(np.int32))
+
+
+def skewed_kg(
+    n_entities: int,
+    n_relations: int,
+    n_triples: int,
+    seed: int = 0,
+    latent_dim: int = 16,
+    neighbourhood: int = 4,
+    zipf_alpha: float = 0.8,
+    fan: int = 6,
+    type_mix: Tuple[float, float, float, float] = (0.15, 0.25, 0.30, 0.30),
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """FB15k-statistics-matched synthetic KG (planted + skewed).
+
+    The planted KG validates model ordering but has near-uniform degree;
+    real KGs don't.  This generator shapes the two statistics the reference's
+    machinery exists FOR:
+
+    * **Power-law popularity**: entity endpoint draws and per-relation triple
+      counts follow a Zipf(``zipf_alpha``) law, giving heavy-tailed degrees.
+    * **Relation cardinality mix**: each relation is assigned a type from
+      ``type_mix`` = (1-1, 1-N, N-1, N-N) fractions (FB15k's measured mix is
+      roughly 24/23/29/24; the default over-weights the N-sides bern sampling
+      targets, common/trainer.cpp:171-194).  A 1-N relation draws heads from
+      a pool ``fan``× smaller than its tails, so tph ≫ 1 and bern's
+      corrupt-the-head preference has signal; N-1 mirrors it.
+
+    Tails keep the planted-TransE structure: t is a near-neighbour of
+    z_h + z_r *within the relation's tail pool*, so translation models can
+    realise the graph and quality ordering stays meaningful.
+    """
+    rng = np.random.default_rng(seed)
+    z_e = rng.normal(size=(n_entities, latent_dim))
+    z_e /= np.linalg.norm(z_e, axis=1, keepdims=True)
+    z_r = 0.5 * rng.normal(size=(n_relations, latent_dim)) / np.sqrt(latent_dim)
+
+    # Zipf popularity over entities (shuffled so id order carries no signal).
+    pop = (1.0 / np.arange(1, n_entities + 1) ** zipf_alpha)
+    pop = rng.permutation(pop)
+    pop /= pop.sum()
+
+    # Zipf-ish triple counts per relation.
+    rel_w = 1.0 / np.arange(1, n_relations + 1) ** zipf_alpha
+    rel_w = rng.permutation(rel_w)
+    counts = np.maximum(1, np.round(rel_w / rel_w.sum() * n_triples).astype(np.int64))
+
+    types = rng.choice(4, size=n_relations, p=np.asarray(type_mix))
+
+    hs, ts_, rs = [], [], []
+    for rel in range(n_relations):
+        m = int(counts[rel])
+        ty = types[rel]  # 0: 1-1, 1: 1-N, 2: N-1, 3: N-N
+        n_heads = max(1, m // fan) if ty in (1,) else m
+        n_tails = max(1, m // fan) if ty in (2,) else m
+        if ty == 3:  # N-N: both sides moderately pooled
+            n_heads = max(2, m // 2)
+            n_tails = max(2, m // 2)
+        head_pool = rng.choice(n_entities, size=min(n_heads, n_entities), replace=False, p=pop)
+        tail_pool = rng.choice(n_entities, size=min(n_tails, n_entities), replace=False, p=pop)
+        h = head_pool[rng.integers(0, head_pool.shape[0], m)]
+        # Planted tails: nearest members of the tail pool to z_h + z_r.
+        target = z_e[h] + z_r[rel]  # [m, d]
+        # A 1-N head repeats ~fan times and needs ≥ fan DISTINCT tails or the
+        # dedup collapses its fan-out (and tph with it); a 1-1 relation wants
+        # the single nearest tail so fan-out stays ≈ 1 on both sides.
+        j = {0: 1, 1: 3 * fan, 2: neighbourhood, 3: 2 * fan}[int(ty)]
+        j = min(j, tail_pool.shape[0])
+        pick = rng.integers(0, j, m)
+        # Nearest-neighbour search in fixed-size chunks of heads: the dense
+        # [m, pool] distance matrix is multi-GB for the Zipf-head relation at
+        # FB15k triple counts; chunking keeps peak memory at O(chunk × pool).
+        pool_z = z_e[tail_pool]  # [pool, d]
+        t = np.empty(m, dtype=np.int64)
+        chunk = 2048
+        for lo in range(0, m, chunk):
+            hi = min(lo + chunk, m)
+            d = np.linalg.norm(target[lo:hi, None, :] - pool_z[None, :, :], axis=-1)
+            nn = np.argpartition(d, j - 1, axis=1)[:, :j]
+            t[lo:hi] = tail_pool[nn[np.arange(hi - lo), pick[lo:hi]]]
+        hs.append(h)
+        ts_.append(t)
+        rs.append(np.full(m, rel, dtype=np.int64))
+
+    h = np.concatenate(hs).astype(np.int32)
+    t = np.concatenate(ts_).astype(np.int32)
+    r = np.concatenate(rs).astype(np.int32)
+    perm = rng.permutation(h.shape[0])
+    return _dedup(h[perm], t[perm], r[perm])
 
 
 def write_kg_dir(

@@ -7,16 +7,20 @@ use, under a name that carries a hash of the source, the headers of
 ``csrc/`` and the flags, so an edited source or header is rebuilt and an
 unchanged one is not.  nvcc's output, with
 ptxas's register and spill report for each kernel, is kept beside the
-library as ``.log``.
+library as ``.log``.  The wrappers share the checks of what a library's
+launchers return.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -65,3 +69,26 @@ def build(source: Path, build_dir: Path = BUILD_DIR) -> Path:
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def device_index(dev: torch.device) -> int:
+    """The CUDA ordinal of ``dev``; the current device where it names none."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raises RuntimeError unless ``code``, the CUDA error code one of
+    ``lib``'s launchers returned, is 0 (the launch was accepted)."""
+    if code != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.kb2e_cuda_error_string(code).decode()} (cuda error {code})"
+        )
+
+
+def blocks_per_sm(lib: ctypes.CDLL, query, k: int, device, what: str) -> int:
+    """Blocks of an update pass that fit on one SM of ``device`` (default
+    ``cuda``) at width k, as ``query``, one of ``lib``'s
+    ``kb2e_<name>_blocks_per_sm``, reports them."""
+    per_sm = ctypes.c_int(0)
+    check_launch(lib, query(k, device_index(torch.device(device or "cuda")), ctypes.byref(per_sm)), what)
+    return per_sm.value

@@ -160,12 +160,9 @@ def rank_counts(
         n,
         b,
         int(distance == Distance.L2),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        cuda_build.device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if code != 0:
-        raise RuntimeError(
-            f"rank-count kernel launch failed: {lib.kb2e_cuda_error_string(code).decode()} (cuda error {code})"
-        )
+    cuda_build.check_launch(lib, code, "rank-count")
     launch_counts[KERNEL_NAMES[distance]] += 1
     return out

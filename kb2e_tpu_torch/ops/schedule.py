@@ -1,8 +1,9 @@
 """The order in which the sequential-update kernels may run samples side by side.
 
-A sample of the TransH or TransR parity update (``ops/transh_update.py``,
+A sample of the TransE, TransH or TransR parity update
+(``ops/transe_update.py``, ``ops/transh_update.py``,
 ``ops/transr_update.py``) reads and writes only its own rows of the output
-tables: its entities h, t, h', t' and its relation's rows (r and w_r or
+tables: its entities h, t, h', t' and its relation's rows (r, and w_r or
 W_r).  Two updates that share no row commute exactly, so any order that
 keeps, for every row, the updates that touch it in batch order gives the
 sequential result bit for bit.  :func:`row_predecessors` lists, for each
@@ -22,7 +23,7 @@ import torch
 def update_rows(ph: torch.Tensor, pt: torch.Tensor, nh: torch.Tensor, nt: torch.Tensor, r: torch.Tensor,
                 n_entities: int) -> torch.Tensor:
     """int64 [B, 5]: the row keys each sample touches; entity ids as they
-    are, the relation (its row and its w_r or W_r) as ``n_entities + r``."""
+    are, the relation (its row, and its w_r or W_r) as ``n_entities + r``."""
     return torch.stack([ph, pt, nh, nt, r.to(torch.int64) + n_entities], 1).to(torch.int64)
 
 

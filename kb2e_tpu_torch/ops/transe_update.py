@@ -16,15 +16,23 @@ One batch of the reference's hot loop (``transe/trainer.cpp:25-56``,
   ball-normed twice, the second norm reading the first's result; the
   corrupted triple sees the rows the positive one wrote.
 
-* On a CUDA tensor :func:`transe_sequential_update` launches the kernel of
-  ``csrc/transe_update.cu`` (L1 and L2 templates; what bounds it and its
-  design are noted there), or raises.  It is compiled by
-  :mod:`kb2e_tpu_torch.ops.cuda_build` at first use and bound with ``ctypes``.
+* On a CUDA tensor :func:`transe_sequential_update` launches the kernels of
+  ``csrc/transe_update.cu`` (L1 and L2 templates of the decide pass; what
+  bounds them and their design are noted there), or raises: a decide pass,
+  one block per sample, for the decisions and the loss; then, with each
+  update's predecessors on its rows from
+  :func:`kb2e_tpu_torch.ops.schedule.row_predecessors`, an update pass that
+  runs samples side by side across the SMs in the reference's per-row order.
+  They are compiled by :mod:`kb2e_tpu_torch.ops.cuda_build` at first use and
+  bound with ``ctypes``.
 * On a CPU tensor it runs :func:`transe_sequential_update_reference`, the
-  plain PyTorch version: the per-sample loop of the JAX scan path.
+  plain PyTorch version.  It takes every sum over k in the kernel's order
+  (``kernel_order_sum``), square roots correctly rounded (``sqrt_rn``), and
+  rounds every elementwise step as its own torch op, so on the card the
+  kernel and the plain version agree bit for bit.
 
-``launch_counts`` counts the kernel's launches per distance; only the launch
-path adds to it.
+``launch_counts`` counts the wrapper's calls on the card, one a batch (its
+three launches together), per distance; only the launch path adds to it.
 """
 
 from __future__ import annotations
@@ -38,12 +46,15 @@ import numpy as np
 import torch
 
 from kb2e_tpu_torch.constants import Distance
-from kb2e_tpu_torch.ops import cuda_build, projections
+from kb2e_tpu_torch.ops import cuda_build, schedule
+from kb2e_tpu_torch.ops.transh_update import kernel_order_sum
+from kb2e_tpu_torch.ops.transr_update import sqrt_rn
 
 KERNEL_NAMES = {Distance.L1: "transe_update_l1", Distance.L2: "transe_update_l2"}
 SOURCE = cuda_build.CSRC / "transe_update.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
-MAX_K = 1024  # one coordinate per thread, one block
+WHAT = "TransE sequential-update"  # names the kernels in launch errors
+MAX_K = 1024  # one coordinate per thread, one block a sample
 
 # Kernel launches by kernel name, added to only where a kernel is launched.
 launch_counts: collections.Counter = collections.Counter()
@@ -62,15 +73,22 @@ def build() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kb2e_transe_update.argtypes = [ptr] * 12 + [c_int] * 4 + [c_float] * 2 + [ptr]
-    lib.kb2e_transe_update.restype = c_int
+    lib.kb2e_transe_decide.argtypes = [ptr] * 11 + [c_int] * 4 + [c_float, ptr]
+    lib.kb2e_transe_apply.argtypes = [ptr] * 12 + [c_int] * 4 + [c_float, ptr]
+    lib.kb2e_transe_blocks_per_sm.argtypes = [c_int, c_int, ptr]
+    for fn in (lib.kb2e_transe_decide, lib.kb2e_transe_apply, lib.kb2e_transe_blocks_per_sm):
+        fn.restype = c_int
     lib.kb2e_cuda_error_string.argtypes = [c_int]
     lib.kb2e_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _ball(row: torch.Tensor) -> torch.Tensor:
-    return projections.ball_norm(row[None, :])[0]
+def _ball(rows: torch.Tensor) -> torch.Tensor:
+    """The kernel's ball norm of each row (the last axis): the row over its
+    norm where the norm, summed in the kernel's order and rooted correctly
+    rounded, exceeds 1."""
+    n = sqrt_rn(kernel_order_sum(rows * rows))[..., None]
+    return torch.where(n > 1.0, rows / n, rows)
 
 
 def transe_sequential_update_reference(
@@ -92,37 +110,44 @@ def transe_sequential_update_reference(
     The snapshot energies of all samples are taken at once (they read only
     the snapshot); the updates of the violating samples then run one sample
     at a time, in order, on the output tables.  The loss adds the violating
-    samples' margin + e_pos − e_neg in sample order, in float32.
+    samples' margin + e_pos − e_neg in sample order, in float32.  Every sum
+    over k runs in the kernel's order and every step rounds as the kernel's:
+    (t − h) − r, d = s·x, r + d, h + d, t + (−d).
     """
     snap_e, snap_r = entity.to(torch.float32), relation.to(torch.float32)
     ent, rel = snap_e.clone(), snap_r.clone()
     rv = snap_r[r]
-    res_p = snap_e[pt] - snap_e[ph] - rv
-    res_n = snap_e[nt] - snap_e[nh] - rv
+    res_p = (snap_e[pt] - snap_e[ph]) - rv
+    res_n = (snap_e[nt] - snap_e[nh]) - rv
     if l1:
-        e_p, e_n = res_p.abs().sum(-1), res_n.abs().sum(-1)
+        e_p, e_n = kernel_order_sum(torch.stack([res_p.abs(), res_n.abs()]))
         x_p, x_n = torch.where(2.0 * res_p > 0, 1.0, -1.0), torch.where(2.0 * res_n > 0, 1.0, -1.0)
     else:
-        e_p, e_n = (res_p * res_p).sum(-1), (res_n * res_n).sum(-1)
+        e_p, e_n = kernel_order_sum(torch.stack([res_p * res_p, res_n * res_n]))
         x_p, x_n = 2.0 * res_p, 2.0 * res_n
     viol = (e_p + margin > e_n) & valid.to(torch.bool)
-    terms = (margin + e_p - e_n)[viol].cpu().numpy()
+    terms = ((margin + e_p) - e_n)[viol].cpu().numpy()
     loss = np.float32(0.0)
     for term in terms:
         loss = np.float32(loss + term)
 
     lr = learning_rate
     idx = torch.stack([ph, pt, r, nh, nt], 1)[viol].tolist()
-    for b, (h, t, rr, hn, tn) in zip(viol.nonzero()[:, 0].tolist(), idx):
-        for (hh, tt), x, s in (((h, t), x_p[b], lr), ((hn, tn), x_n[b], -lr)):
+    for i, (h, t, rr, hn, tn) in zip(viol.nonzero()[:, 0].tolist(), idx):
+        rel_row = rel[rr]
+        for hh, tt, x, s in ((h, t, x_p[i], lr), (hn, tn, x_n[i], -lr)):
             # s = −β·lr: r, h += s·x; t −= s·x (t after h, so h == t sums
-            # both deltas on one row), then ball-norm r, h, t in that order.
-            rel[rr] += s * x
-            ent[hh] += s * x
-            ent[tt] += -s * x
-            rel[rr] = _ball(rel[rr])
-            ent[hh] = _ball(ent[hh])
-            ent[tt] = _ball(ent[tt])
+            # both deltas on one row), then ball-norm r, h, t in that order;
+            # a row h == t is normed twice.
+            d = s * x
+            rel_row = rel_row + d
+            h_row = ent[hh] + d
+            if hh == tt:
+                rel_row, h_row = _ball(torch.stack([rel_row, h_row + (-d)]))
+                ent[hh] = _ball(h_row)
+            else:
+                rel_row, ent[hh], ent[tt] = _ball(torch.stack([rel_row, h_row, ent[tt] + (-d)]))
+        rel[rr] = rel_row
     return ent, rel, torch.tensor(loss, device=entity.device), viol
 
 
@@ -142,7 +167,7 @@ def transe_sequential_update(
 ):
     """(entity', relation', loss, viol) with the reference's sequential semantics.
 
-    CUDA tensors go to the kernel, CPU tensors to the plain version.  The
+    CUDA tensors go to the kernels, CPU tensors to the plain version.  The
     snapshot is not written: the outputs are new tables.  ``viol`` is the
     bool [B] per-sample update decision.
     """
@@ -166,31 +191,35 @@ def transe_sequential_update(
             )
     if not 0 < k <= MAX_K or max(n, n_rel) * k >= 2**31:
         raise ValueError(f"transe_sequential_update: k = {k} must lie in [1, {MAX_K}] and N·k, R·k below 2^31")
-    if b:
-        # Out-of-range rows would be read and written outside the tables.
-        ids = torch.stack([ph, pt, nh, nt])
-        lo, hi, rlo, rhi = torch.stack([ids.min(), ids.max(), r.min(), r.max()]).tolist()
-        if lo < 0 or hi >= n or rlo < 0 or rhi >= n_rel:
-            raise ValueError(
-                f"transe_sequential_update: entity ids in [{lo}, {hi}] or relation ids in [{rlo}, {rhi}] "
-                f"fall outside [0, {n}) / [0, {n_rel})"
-            )
+    schedule.check_ids("transe_sequential_update", ph, pt, r, nh, nt, n, n_rel)
 
     ent_out, rel_out = entity.clone(), relation.clone()
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     viol = torch.empty(b, dtype=torch.int32, device=dev)
-    distance = Distance.L1 if l1 else Distance.L2
+    terms = torch.empty(b, dtype=torch.float32, device=dev)  # each sample's margin + e_p − e_n
+    order = torch.zeros(b + 1, dtype=torch.int32, device=dev)  # the done flags, then the ticket
     lib = _library()
-    code = lib.kb2e_transe_update(
-        entity.data_ptr(), relation.data_ptr(), ent_out.data_ptr(), rel_out.data_ptr(),
+    index = cuda_build.device_index(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_build.check_launch(lib, lib.kb2e_transe_decide(
+        entity.data_ptr(), relation.data_ptr(),
         ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(), valid.data_ptr(),
-        loss.data_ptr(), viol.data_ptr(),
-        k, b, int(l1), dev.index if dev.index is not None else torch.cuda.current_device(),
-        float(learning_rate), float(margin), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if code != 0:
-        raise RuntimeError(
-            f"sequential-update kernel launch failed: {lib.kb2e_cuda_error_string(code).decode()} (cuda error {code})"
-        )
-    launch_counts[KERNEL_NAMES[distance]] += 1
-    return ent_out, rel_out, loss, viol.to(torch.bool)
+        terms.data_ptr(), viol.data_ptr(), loss.data_ptr(),
+        k, b, int(l1), index, float(margin), stream,
+    ), WHAT)
+    decided = viol.to(torch.bool)
+    pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, n), decided)
+    cuda_build.check_launch(lib, lib.kb2e_transe_apply(
+        entity.data_ptr(), relation.data_ptr(), ent_out.data_ptr(), rel_out.data_ptr(),
+        ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(),
+        viol.data_ptr(), pred.data_ptr(), order.data_ptr(),
+        k, b, int(l1), index, float(learning_rate), stream,
+    ), WHAT)
+    launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
+    return ent_out, rel_out, loss, decided
+
+
+def resident_blocks_per_sm(k: int, device: torch.device | None = None) -> int:
+    """Blocks of the update pass that fit on one SM of ``device`` at once, at width k."""
+    lib = _library()
+    return cuda_build.blocks_per_sm(lib, lib.kb2e_transe_blocks_per_sm, k, device, WHAT)

@@ -58,6 +58,7 @@ from kb2e_tpu_torch.ops.transh_update import kernel_order_sum
 KERNEL_NAMES = {Distance.L1: "transr_update_l1", Distance.L2: "transr_update_l2"}
 SOURCE = cuda_build.CSRC / "transr_update.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
+WHAT = "TransR sequential-update"  # names the kernels in launch errors
 # One coordinate per thread and the working W_r in shared memory, k × (k | 1)
 # floats: 224 keeps it inside the 227 KB a block may have.
 MAX_K = 224
@@ -288,41 +289,27 @@ def transr_sequential_update(
     terms = torch.empty(b, dtype=torch.float32, device=dev)  # each sample's margin + e_p − e_n
     order = torch.zeros(b + 1, dtype=torch.int32, device=dev)  # the done flags, then the ticket
     lib = _library()
-    index = _device_index(dev)
+    index = cuda_build.device_index(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(lib, lib.kb2e_transr_decide(
+    cuda_build.check_launch(lib, lib.kb2e_transr_decide(
         entity.data_ptr(), relation.data_ptr(), proj.data_ptr(),
         ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(), valid.data_ptr(),
         xs.data_ptr(), terms.data_ptr(), viol.data_ptr(), loss.data_ptr(),
         k, b, int(l1), index, float(margin), stream,
-    ))
+    ), WHAT)
     decided = viol.to(torch.bool)
     pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, n), decided)
-    _check(lib, lib.kb2e_transr_apply(
+    cuda_build.check_launch(lib, lib.kb2e_transr_apply(
         entity.data_ptr(), proj.data_ptr(), ent_out.data_ptr(), rel_out.data_ptr(), proj_out.data_ptr(),
         ph.data_ptr(), pt.data_ptr(), r.data_ptr(), nh.data_ptr(), nt.data_ptr(),
         viol.data_ptr(), xs.data_ptr(), pred.data_ptr(), order.data_ptr(), trips.data_ptr(),
         k, b, max_iters, index, float(learning_rate), stream,
-    ))
+    ), WHAT)
     launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
     return ent_out, rel_out, proj_out, loss, decided, trips
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
-def _check(lib: ctypes.CDLL, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"TransR sequential-update kernel launch failed: {lib.kb2e_cuda_error_string(code).decode()} "
-            f"(cuda error {code})"
-        )
 
 
 def resident_blocks_per_sm(k: int, device: torch.device | None = None) -> int:
     """Blocks of the update pass that fit on one SM of ``device`` at once, at width k."""
     lib = _library()
-    per_sm = ctypes.c_int(0)
-    _check(lib, lib.kb2e_transr_blocks_per_sm(k, _device_index(torch.device(device or "cuda")), ctypes.byref(per_sm)))
-    return per_sm.value
+    return cuda_build.blocks_per_sm(lib, lib.kb2e_transr_blocks_per_sm, k, device, WHAT)

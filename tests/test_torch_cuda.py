@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5).  K4 and K5 run
+TransH update (K4) and the sequential TransR update (K5).  K3, K4 and K5 run
 samples that share no row side by side; batches built to stress that
 schedule (a chain of the whole batch, no shared row at all, fewer samples
 than resident blocks, no update at all) hold them bit-equal to their plain
@@ -143,22 +143,21 @@ def test_update_kernel_equals_plain_version_on_dyadic_snapshots(cuda, n, n_rel, 
     assert dict(transe_update.launch_counts) == {name: 1}
     assert torch.equal(viol, want[3]) and 0 < int(viol.sum()) < b
     assert float(loss) == float(want[2])
-    torch.testing.assert_close(ent, want[0], atol=1e-5, rtol=0)
-    torch.testing.assert_close(rel, want[1], atol=1e-5, rtol=0)
+    assert torch.equal(ent, want[0]) and torch.equal(rel, want[1])
     # The snapshot is not written.
     assert torch.equal(args[0], _update_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)[0])
 
 
 @pytest.mark.parametrize("l1", [True, False])
 def test_update_kernel_near_plain_version_on_unrounded_tables(cuda, l1):
+    # Bit for bit: the plain version sums over k in the kernel's order.
     args = _update_case(3000, 100, 100, 2000, seed=4, dev=cuda, dyadic=False)
     kw = dict(learning_rate=0.01, margin=1.0, l1=l1)
     ent, rel, loss, viol = transe_update.transe_sequential_update(*args, **kw)
     want = transe_update.transe_sequential_update_reference(*args, **kw)
     assert torch.equal(viol, want[3])
-    assert float(loss) == pytest.approx(float(want[2]), rel=1e-5)
-    torch.testing.assert_close(ent, want[0], atol=1e-5, rtol=0)
-    torch.testing.assert_close(rel, want[1], atol=1e-5, rtol=0)
+    assert float(loss) == float(want[2])
+    assert torch.equal(ent, want[0]) and torch.equal(rel, want[1])
 
 
 def test_update_kernel_leaves_an_all_invalid_batch_alone(cuda):
@@ -392,7 +391,8 @@ STRESS = ("one relation", "distinct rows", "one entity", "smaller than the grid"
 
 
 def _stress_case(model, kind, k, b, seed, dev):
-    """Tables as _transh_case's or _transr_case's, and a batch of one
+    """Tables as _update_case's (unrounded), _transh_case's or _transr_case's,
+    and a batch of one
     ``kind``: every sample on relation 0 (one chain of the whole batch); no
     row shared by two samples; entity 0 in every sample (in h, t, h', t' in
     turn); 3 valid samples whose corrupted triple is the positive one, so
@@ -403,14 +403,18 @@ def _stress_case(model, kind, k, b, seed, dev):
         b = 3
     n, n_rel = (4 * b + 8, b + 3) if kind == "distinct rows" else (max(40, b), 6)
     ent, rel = rng.normal(size=(n, k)), rng.normal(size=(n_rel, k))
-    if model == "transh":
+    if model == "transe":
+        tables = (ent * 0.4, rel * 0.4)
+    elif model == "transh":
         ent, rel = ent * 0.4, rel * 0.4
         w = rng.normal(size=(n_rel, k))
         w /= np.linalg.norm(w, axis=1, keepdims=True)
+        tables = (ent, rel, w)
     else:
         ent /= np.linalg.norm(ent, axis=1, keepdims=True)
         rel /= np.linalg.norm(rel, axis=1, keepdims=True)
         w = np.eye(k) + rng.normal(size=(n_rel, k, k)) * 0.15
+        tables = (ent, rel, w)
     if kind == "distinct rows":
         ph, pt, nh, nt = rng.permutation(n)[:4 * b].reshape(4, b).astype(np.int32)
         r = rng.permutation(n_rel)[:b].astype(np.int32)
@@ -425,30 +429,46 @@ def _stress_case(model, kind, k, b, seed, dev):
         for j, ids in enumerate((ph, pt, nh, nt)):
             ids[j::4] = 0
     valid = np.full(b, kind != "all invalid") if kind in ("all invalid", "smaller than the grid") else rng.random(b) > 0.1
-    tensors = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (ent, rel, w)]
+    tensors = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in tables]
     tensors += [torch.from_numpy(a).to(dev) for a in (ph, pt, r, nh, nt, valid)]
     return tensors
 
 
-def _assert_stress_result(kind, args, got, want):
-    """Bit for bit: decisions, trips, loss and all three tables; and the
-    schedule the batch was built for."""
-    assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
-    assert float(got[3]) == float(want[3])
-    for table, plain in zip(got[:3], want[:3]):
+def _assert_stress_result(kind, args, got, want, m=3):
+    """Bit for bit: decisions, trips (K4, K5), loss and all m tables; and
+    the schedule the batch was built for.  The outputs are the m tables, the
+    loss, the decisions, then the trips."""
+    assert torch.equal(got[m + 1], want[m + 1])
+    assert all(torch.equal(g, w) for g, w in zip(got[m + 2:], want[m + 2:]))
+    assert float(got[m]) == float(want[m])
+    for table, plain in zip(got[:m], want[:m]):
         assert torch.equal(table, plain)
-    n_viol = int(got[4].sum())
+    viol = got[m + 1]
+    n_viol = int(viol.sum())
     if kind == "all invalid":
-        assert n_viol == 0 and all(torch.equal(g, x) for g, x in zip(got[:3], args[:3]))
+        assert n_viol == 0 and all(torch.equal(g, x) for g, x in zip(got[:m], args[:m]))
         return
     assert n_viol > 0
-    ph, pt, r, nh, nt = args[3:8]
-    pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, args[0].shape[0]), got[4])
-    depth = schedule.chain_levels(pred, got[4]).max()
+    ph, pt, r, nh, nt = args[m:m + 5]
+    pred = schedule.row_predecessors(schedule.update_rows(ph, pt, nh, nt, r, args[0].shape[0]), viol)
+    depth = schedule.chain_levels(pred, viol).max()
     if kind in ("one relation", "one entity"):
         assert depth == n_viol
     elif kind == "distinct rows":
         assert depth == 1
+
+
+@pytest.mark.parametrize("k,b", [(12, 256), (33, 192), (100, 96), (transe_update.MAX_K, 24)])
+@pytest.mark.parametrize("kind", STRESS)
+@pytest.mark.parametrize("l1", [True, False])
+def test_transe_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, l1):
+    args = _stress_case("transe", kind, k, b, seed=k + b, dev=cuda)
+    kw = dict(learning_rate=0.05, margin=1.0, l1=l1)
+    transe_update.reset_launch_counts()
+    got = transe_update.transe_sequential_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(transe_update.launch_counts) == {transe_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
+    _assert_stress_result(kind, args, got, transe_update.transe_sequential_update_reference(*args, **kw), m=2)
 
 
 @pytest.mark.parametrize("k,b", [(12, 256), (33, 192), (100, 96), (transh_update.MAX_K, 24)])
@@ -478,7 +498,8 @@ def test_transr_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, 
     _assert_stress_result(kind, args, got, transr_update.transr_sequential_update_reference(*args, **kw))
 
 
-@pytest.mark.parametrize("module,k", [(transh_update, 100), (transh_update, transh_update.MAX_K),
+@pytest.mark.parametrize("module,k", [(transe_update, 100), (transe_update, transe_update.MAX_K),
+                                      (transh_update, 100), (transh_update, transh_update.MAX_K),
                                       (transr_update, 100), (transr_update, transr_update.MAX_K)])
 def test_update_pass_fits_several_blocks_per_sm_at_fb15k_width(cuda, module, k):
     per_sm = module.resident_blocks_per_sm(k)

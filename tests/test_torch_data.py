@@ -64,6 +64,17 @@ def test_synthetic_directory_is_byte_identical(tmp_path):
     assert not mismatch and not errors
 
 
+def test_skewed_kg_equals_jax_for_one_seed():
+    # tests/test_data.py's size: the port keeps its own copy of the generator.
+    got = port_synthetic.skewed_kg(2000, 24, 12000, seed=3)
+    want = jax_synthetic.skewed_kg(2000, 24, 12000, seed=3)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    n = got[2].shape[0]
+    assert n > 6000 and np.bincount(got[2]).max() > 2 * n / 24  # the top relation is far above the mean
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_embedding_files_byte_identical_and_cross_load(tmp_path, writer):
     rng = np.random.default_rng(5)

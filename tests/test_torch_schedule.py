@@ -1,13 +1,13 @@
 """kb2e_tpu_torch's update schedule (``ops/schedule.py``) on the CPU.
 
 ``row_predecessors`` is index bookkeeping that the JAX package never does:
-it lets the TransH and TransR parity kernels run samples that share no row
-side by side.  It is held against a plain Python last-toucher loop on seeded
+it lets the TransE, TransH and TransR parity kernels run samples that share
+no row side by side.  It is held against a plain Python last-toucher loop on seeded
 batches (heavy conflicts, inactive samples, every kind of row a sample
 lists twice, B = 0 and 1), and each active sample's chain of predecessors
 must reach every earlier active sample that shares a row with it.  Then the
-claim the schedule rests on, with the unchanged plain versions of K4 and
-K5: a batch run in the order of its chains' levels, which keeps each row's
+claim the schedule rests on, with the plain versions of K3, K4 and K5: a
+batch run in the order of its chains' levels, which keeps each row's
 updates in batch order, gives the sequential tables bit for bit.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from kb2e_tpu_torch.ops import schedule, transh_update, transr_update
+from kb2e_tpu_torch.ops import schedule, transe_update, transh_update, transr_update
 
 torch.set_num_threads(1)
 
@@ -129,18 +129,31 @@ def _level_order(ids, n, viol):
 def _tables(rng, n, n_rel, k, model):
     ent = rng.normal(size=(n, k)) * 0.4
     rel = rng.normal(size=(n_rel, k)) * 0.4
-    if model == "transh":
+    if model == "transe":
+        tables = (ent, rel)
+    elif model == "transh":
         w = rng.normal(size=(n_rel, k))
         w /= np.linalg.norm(w, axis=1, keepdims=True)
+        tables = (ent, rel, w)
     else:
         ent /= np.linalg.norm(ent, axis=1, keepdims=True)
         rel /= np.linalg.norm(rel, axis=1, keepdims=True)
         w = np.eye(k) + rng.normal(size=(n_rel, k, k)) * 0.15
-    return [torch.from_numpy(a.astype(np.float32)) for a in (ent, rel, w)]
+        tables = (ent, rel, w)
+    return [torch.from_numpy(a.astype(np.float32)) for a in tables]
+
+
+UPDATES = {
+    "transe": transe_update.transe_sequential_update_reference,
+    "transh": transh_update.transh_sequential_update_reference,
+    "transr": transr_update.transr_sequential_update_reference,
+}
 
 
 @pytest.mark.parametrize("n,n_rel", [(12, 2), (60, 8)])
 @pytest.mark.parametrize("model,kw", [
+    ("transe", dict(l1=True)),
+    ("transe", dict(l1=False)),
     ("transh", dict(max_iters=16)),
     ("transh", dict(max_iters=1)),
     ("transr", dict(l1=True, max_iters=16)),
@@ -155,18 +168,21 @@ def test_plain_versions_give_the_same_tables_in_level_order(model, kw, n, n_rel)
     nh[b // 6: b // 3] = ph[b // 6: b // 3]
     r = torch.from_numpy(rng.integers(0, n_rel, b).astype(np.int32))
     valid = torch.from_numpy(rng.random(b) > 0.1)
-    update = (transh_update.transh_sequential_update_reference if model == "transh"
-              else transr_update.transr_sequential_update_reference)
+    update = UPDATES[model]
     kw = dict(kw, learning_rate=0.05, margin=1.0)
+    # The outputs: the tables, then the loss, the decisions and (K4, K5) the trips.
+    m = len(tables)
     seq = update(*tables, ph, pt, r, nh, nt, valid, **kw)
-    viol = seq[4]
+    viol = seq[m + 1]
     assert 0 < int(viol.sum()) < b
     perm = _level_order((ph, pt, nh, nt, r), n, viol)
     if n == 60:
         assert not torch.equal(perm, torch.arange(b))  # the level order does reorder the batch
     got = update(*tables, *(x[perm] for x in (ph, pt, r, nh, nt, valid)), **kw)
-    for table, want in zip(got[:3], seq[:3]):
+    for table, want in zip(got[:m], seq[:m]):
         assert torch.equal(table, want)
-    assert torch.equal(got[4], viol[perm]) and torch.equal(got[5], seq[5][perm])
+    assert torch.equal(got[m + 1], viol[perm])
+    for extra, want in zip(got[m + 2:], seq[m + 2:]):
+        assert torch.equal(extra, want[perm])
     # Only the loss's sum order changed.
-    assert float(got[3]) == pytest.approx(float(seq[3]), rel=1e-5)
+    assert float(got[m]) == pytest.approx(float(seq[m]), rel=1e-5)
