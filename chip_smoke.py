@@ -3,6 +3,8 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rank-count-only   # phases 1-2, the rank count's checks and timing
+    python3 chip_smoke.py --ranking-alone     # phases 1-2, harness.rank_all timed alone
 
 Phases, each printing one line (or a few) and stopping the run with a
 non-zero exit on any failure:
@@ -13,8 +15,9 @@ non-zero exit on any failure:
               register and spill report per kernel template;
 3. kernels  — each kernel against its plain PyTorch version at FB15k width:
               the rank count (N = 14,951, k = 100, B = 256 and a ragged 250;
-              L1 and L2), exact on dyadic inputs and at most 0.1 % of
-              queries off by at most 2 on TransE-init tables; the TransE
+              L1 and L2), exact on dyadic inputs (through the wrapper and
+              through the bare launch) and at most 0.1 % of queries off by
+              at most 2 on TransE-init tables; the TransE
               sequential update (N = 14,951, R = 1,345, k = 100, B = 4,831, a
               batch of the port's sampler with 1/8 of its positives h == t
               and the next 1/8 of its corrupted triples h' == t'; L1 and L2),
@@ -82,7 +85,10 @@ non-zero exit on any failure:
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
               records count the launches of every eval path (TransE, both
-              TransH flags, TransR).  The TransE, TransH and TransR updates
+              TransH flags, TransR); their ``ms`` is the wrapper's time as
+              the harness calls it, with the bare launch's device time beside
+              it (``device_ms``: CUDA events, the profiler as a cross-check),
+              the grid, the resident blocks and waves.  The TransE, TransH and TransR updates
               are also timed on each STRESS batch and on the skewed batch,
               beside its longest chain of samples that share a row (from the
               schedule's predecessors) and its count of updates, with the
@@ -369,7 +375,10 @@ def rank_kernel_checks(tables):
             args = (ent.T.contiguous(), q.T.contiguous(), e_true, t, distance)
             got = rank_count.rank_counts(*args)
             torch.cuda.synchronize()
-            n_dy, _ = compare(got, rank_count.rank_counts_reference(*args), True, f"{distance.name} B={b} dyadic")
+            want = rank_count.rank_counts_reference(*args)
+            n_dy, _ = compare(got, want, True, f"{distance.name} B={b} dyadic")
+            # The bare launch, on the harness's aligned layout with ‖e‖² given.
+            compare(bare_launch(args), want, True, f"{distance.name} B={b} dyadic, bare launch")
             # TransE-init tables, eval-shaped queries.
             args = (*eval_inputs(tables["entity"], tables["relation"], b, distance, rng), distance)
             got = rank_count.rank_counts(*args)
@@ -1358,13 +1367,254 @@ def update_timing(ctx, results):
     return records
 
 
-def timing_phase(tables, ctx, results):
+def bare_launcher(args):
+    """The rank count's bare launch on buffers allocated once: the tables in
+    the harness's aligned layout, ``e_sq`` and ``q_sq`` given, and ``out``
+    zeroed once (each launch adds to it), with the arguments bound once, so
+    the host enqueues faster than the card runs; returns (launch, out)."""
     from kb2e_tpu_torch.constants import Distance
-    from kb2e_tpu_torch.ops import rank_count
+    from kb2e_tpu_torch.ops import distances, rank_count
+
+    proj_t, queries_t, e_true, true_idx, distance = args
+    e_sq = q_sq = None
+    if distance == Distance.L2:
+        e_sq, q_sq = distances.squared_norms(proj_t), distances.squared_norms(queries_t)
+    proj_t, queries_t = (rank_count.aligned_transpose(x.T) for x in (proj_t, queries_t))
+    out = torch.zeros(queries_t.shape[1], dtype=torch.int32, device=proj_t.device)
+    return rank_count.launcher(proj_t, queries_t, e_true, true_idx, e_sq, q_sq, out, distance), out
+
+
+def bare_launch(args) -> torch.Tensor:
+    """The counts of one bare launch."""
+    launch, out = bare_launcher(args)
+    launch()
+    torch.cuda.synchronize()
+    return out
+
+
+def rank_count_device_ms(args, reps: int = 200) -> tuple:
+    """The rank count's bare launch (bare_launcher): ms per launch on CUDA
+    events over ``reps`` launches, and the kernel's own time in a
+    torch.profiler trace of as many launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bare, _ = bare_launcher(args)
+    ms = time_ms(bare, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bare()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "rank_count_kernel" in e.key]
+    # The profiler may drop a few of a burst's events: the mean over those it kept.
+    count = sum(e.count for e in found)
+    check(count > 0, f"the profiler saw no launch of rank_count_kernel in {reps}")
+    return ms, sum(e.self_device_time_total for e in found) / count / 1e3
+
+
+def clocks_under_load(fn, seconds: float = 1.5) -> str:
+    """nvidia-smi's SM clock, its maximum and the power draw, sampled while
+    ``fn`` runs back to back for ``seconds``: the clock the data-sheet
+    peaks (1,980 MHz) assume against the one the card ran at."""
+    import threading
+
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout.strip())
+
+    thread = threading.Thread(target=sample)
+    t0 = time.perf_counter()
+    thread.start()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    done.set()
+    thread.join()
+    return "; ".join(samples[1:-1] or samples)
+
+
+def rank_count_k_sweep(distance, ks=(0, 16, 50, 100, 200)) -> str:
+    """The device time at N 14,951, B 256 and each k of ``ks`` on seeded
+    tables, with the least-squares line through those of k > 0: its slope is
+    the time of a k-row across the card, its intercept what a launch costs
+    beside the rows (start, first copies, epilogue); k 0 is the launch and
+    the epilogue alone."""
+    from kb2e_tpu_torch.ops import distances
+
+    rng = np.random.default_rng(SEED + 2)
+    ms = []
+    for k in ks:
+        ent = torch.from_numpy(rng.normal(size=(N_ENTITIES, k)).astype(np.float32)).cuda()
+        q = torch.from_numpy(rng.normal(size=(EVAL_BATCH, k)).astype(np.float32)).cuda()
+        t = torch.from_numpy(rng.integers(0, N_ENTITIES, EVAL_BATCH).astype(np.int32)).cuda()
+        e_true = distances.residual_energy(ent[t.long()] - q, distance).contiguous()
+        ms.append(rank_count_device_ms((ent.T.contiguous(), q.T.contiguous(), e_true, t, distance), reps=100)[1])
+    fit = [(k, m) for k, m in zip(ks, ms) if k > 0]
+    slope, intercept = np.polyfit(np.array([k for k, _ in fit], dtype=np.float64), np.array([m for _, m in fit]), 1)
+    return (", ".join(f"k {k} {m:.4f} ms" for k, m in zip(ks, ms))
+            + f" (profiler): {slope * 1e3:.4f} us a k-row, {intercept * 1e3:.3f} us beside the rows")
+
+
+def rank_count_timing(tables, ctx, results):
+    """The rank count at the main path's shape (B 256, N 14,951, k 100), per
+    distance: the wrapper as the harness calls it (aligned tables, e_sq
+    given for L2: the record's ``ms``) and as a caller with contiguous
+    tables and no ‖e‖² does, the bare launch's device time (CUDA events and
+    the profiler), the plain version, one library call, the bound, and the
+    grid against the card's resident blocks.  ``results`` is None when the
+    main paths did not run (``--rank-count-only``): no launch counts, and in
+    their place the SM clock under back-to-back launches and the device
+    time by k."""
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.ops import distances, rank_count
 
     worst = ctx["rank_worst"]
     rng = np.random.default_rng(SEED + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = rank_count.plan(K, N_ENTITIES, EVAL_BATCH)
     records = []
+    for distance in (Distance.L1, Distance.L2):
+        args = (*eval_inputs(tables["entity"], tables["relation"], EVAL_BATCH, distance, rng), distance)
+        name = rank_count.KERNEL_NAMES[distance]
+        b_ms, b_by = bound_ms(distance, K, N_ENTITIES, EVAL_BATCH)
+        device_ms, profiler_ms = rank_count_device_ms(args)
+        per_sm = rank_count.resident_blocks_per_sm(distance)
+        waves = plan.waves(per_sm, sms)
+        # The wrapper as the harness calls it (aligned tables, ‖e‖² given)
+        # and on contiguous tables without ‖e‖² (a padded copy, ‖e‖² computed).
+        harness_args = (*(rank_count.aligned_transpose(x.T) for x in args[:2]), *args[2:])
+        e_sq = distances.squared_norms(args[0]) if distance == Distance.L2 else None
+        harness_ms = time_ms(lambda: rank_count.rank_counts(*harness_args, e_sq=e_sq), 200)
+        wrapper_ms = time_ms(lambda: rank_count.rank_counts(*args), 200)
+        check(torch.equal(rank_count.rank_counts(*harness_args, e_sq=e_sq), rank_count.rank_counts(*args)),
+              f"{name}: the harness's layout and e_sq give other counts")
+        plain_ms = time_ms(lambda: rank_count.rank_counts_reference(*args), 5)
+        library_ms = time_ms(lambda: library_call(*args), 20)
+        lib_off = int((library_call(*args).long() - rank_count.rank_counts(*args).long()).abs().gt(0).sum())
+        print(f"[timing] {name} B={EVAL_BATCH} N={N_ENTITIES} k={K}: wrapper {harness_ms:.4f} ms as the harness "
+              f"calls it (aligned tables, e_sq given), {wrapper_ms:.4f} ms on contiguous tables; device "
+              f"{device_ms:.4f} ms per bare launch on CUDA events, {profiler_ms:.4f} ms in the profiler "
+              f"({device_ms / b_ms:.2f} times the bound {b_ms:.4f} ms, {b_by}; {b_ms / device_ms:.1%} of it); "
+              f"{plan.tile_n}x{plan.tile_b} tiles, {plan.blocks} blocks, {per_sm} resident on each of {sms} SMs: "
+              f"{waves:.3f} waves; plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({lib_off} counts differ "
+              f"from the kernel)", flush=True)
+        record = {
+            "name": name,
+            "route": "cuda",
+            "source": "kb2e_tpu_torch/csrc/rank_count.cu",
+            "replaces": "kb2e_tpu/ops/pallas_rank.py:" + ("48" if distance == Distance.L1 else "73"),
+            "launches": None,
+            "max_abs_err": worst[distance],
+            "ms": harness_ms,
+            "ms_is": "the wrapper as the harness calls it",
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": library_ms,
+            "device_ms": device_ms,
+            "profiler_ms": profiler_ms,
+            "wrapper_contiguous_ms": wrapper_ms,
+            "tiles": plan.blocks,
+            "blocks_per_sm": per_sm,
+            "waves": waves,
+            "bound_share": b_ms / device_ms,
+        }
+        if results is None:
+            print(f"[timing] {name} back to back: nvidia-smi clocks.sm, clocks.max.sm, power.draw: "
+                  f"{clocks_under_load(bare_launcher(args)[0])}", flush=True)
+            print(f"[timing] {name} by k: {rank_count_k_sweep(distance)}", flush=True)
+        else:
+            # Every eval path's launches of this kernel: TransE's, then the
+            # projecting models' for each flag that ranks by this distance.
+            paths = [("eval_transe", results[distance])] + [
+                (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
+                for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name]
+            record["launches"] = sum(ev["launches"] for _, ev in paths)
+            record["max_abs_err"] = max([worst[distance]] + [ev["max_off"] for _, ev in paths])
+            print(f"[timing] {name}: eval {results[distance]['wall']:.2f} s (ranking alone "
+                  f"{results[distance]['rank_wall']:.3f} s) over {results[distance]['launches']} launches; "
+                  f"{record['launches']} launches over the eval paths ("
+                  + ", ".join(f"{what} {ev['launches']}" for what, ev in paths) + ")", flush=True)
+        records.append(record)
+    return records
+
+
+def ranking_alone_phase(reps: int = 3):
+    """``harness.rank_all`` alone on FB15k-shaped data (the smoke's
+    ``random_kg`` graph, loaded once) and seeded init tables, for TransE
+    (one group) and TransR (1,345 relation groups) at each distance,
+    ``reps`` times each after one warm-up: the seconds of each run and the
+    host seconds spent inside ``rank_count.rank_counts`` (the wrapper, timed
+    around each call); then one run under torch.profiler: the device's busy
+    time, the rank count's launches and mean device time, and the costliest
+    device ops.  It calls only what the port's harness has had since TransR
+    was ported, so the same script times an earlier tree of the package in
+    turns with this one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.ops import rank_count
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:
+        write_fb15k_dir(work)
+        dataset = triples.load_dataset(work, splits=("train", "valid", "test"))
+    counts, in_wrapper = rank_count.rank_counts, [0.0]
+
+    def timed_counts(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = counts(*args, **kwargs)
+        in_wrapper[0] += time.perf_counter() - t0
+        return out
+
+    seconds = {}
+    rank_count.rank_counts = timed_counts
+    try:
+        for model_name in ("transe", "transr"):
+            model, params = get_model(model_name), init_tables(model_name, torch.device("cuda"))
+            for distance in (Distance.L1, Distance.L2):
+                cfg = EmbeddingConfig(embedding_size=K, distance=distance)
+                runs, wrapper = [], []
+                for _ in range(reps + 1):
+                    torch.cuda.synchronize()
+                    in_wrapper[0] = 0.0
+                    t0 = time.perf_counter()
+                    raw, _, sizes = harness.rank_all(model, params, dataset, cfg, device="cuda")
+                    runs.append(time.perf_counter() - t0)
+                    wrapper.append(in_wrapper[0])
+                check(raw.shape[0] == 2 * N_TEST and np.all(raw >= 1), f"{model_name} {distance.name}: ranks out of range")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    harness.rank_all(model, params, dataset, cfg, device="cuda")
+                    torch.cuda.synchronize()
+                device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                                key=lambda e: -e.self_device_time_total)
+                kernel = [e for e in device if "rank_count_kernel" in e.key]
+                n_kernel = sum(e.count for e in kernel)
+                what = f"{model_name} {distance.name}"
+                seconds[what] = runs[1:]
+                print(f"[ranking] {what}: rank_all {len(sizes)} batches, warm-up {runs[0]:.4f} s, then "
+                      + ", ".join(f"{r:.4f}" for r in runs[1:]) + f" s (median {np.median(runs[1:]):.4f}); inside "
+                      "rank_counts " + ", ".join(f"{w:.4f}" for w in wrapper[1:]) + " s; profiled run: device busy "
+                      f"{sum(e.self_device_time_total for e in device) / 1e3:.2f} ms, rank_count_kernel {n_kernel} x "
+                      f"{sum(e.self_device_time_total for e in kernel) / max(n_kernel, 1) / 1e3:.4f} ms; costliest: "
+                      + "; ".join(f"{e.key[:60]} {e.count} x {e.self_device_time_total / e.count / 1e3:.4f} ms"
+                                  for e in device[:4]), flush=True)
+    finally:
+        rank_count.rank_counts = counts
+    return seconds
+
+
+def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
 
     def took(what):
@@ -1374,39 +1624,7 @@ def timing_phase(tables, ctx, results):
         print(f"[timing] {what} took {now - lap:.1f} s", flush=True)
         lap = now
 
-    for distance in (Distance.L1, Distance.L2):
-        args = (*eval_inputs(tables["entity"], tables["relation"], EVAL_BATCH, distance, rng), distance)
-        ms = time_ms(lambda: rank_count.rank_counts(*args), 200)
-        plain_ms = time_ms(lambda: rank_count.rank_counts_reference(*args), 5)
-        library_ms = time_ms(lambda: library_call(*args), 20)
-        lib_off = int((library_call(*args).long() - rank_count.rank_counts(*args).long()).abs().gt(0).sum())
-        b_ms, b_by = bound_ms(distance, K, N_ENTITIES, EVAL_BATCH)
-        name = rank_count.KERNEL_NAMES[distance]
-        # Every eval path's launches of this kernel: TransE's, then the
-        # projecting models' for each flag that ranks by this distance.
-        paths = [("eval_transe", results[distance])] + [
-            (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
-            for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name]
-        launches = sum(ev["launches"] for _, ev in paths)
-        print(f"[timing] {name} B={EVAL_BATCH} N={N_ENTITIES} k={K}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms ({lib_off} counts differ from the kernel), bound {b_ms:.4f} ms "
-              f"({b_by}); eval {results[distance]['wall']:.2f} s (ranking alone "
-              f"{results[distance]['rank_wall']:.3f} s) over {results[distance]['launches']} launches; "
-              f"{launches} launches over the eval paths (" + ", ".join(f"{what} {ev['launches']}" for what, ev in paths)
-              + ")", flush=True)
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": "kb2e_tpu_torch/csrc/rank_count.cu",
-            "replaces": "kb2e_tpu/ops/pallas_rank.py:" + ("48" if distance == Distance.L1 else "73"),
-            "launches": launches,
-            "max_abs_err": max([worst[distance]] + [ev["max_off"] for _, ev in paths]),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": library_ms,
-        })
+    records = rank_count_timing(tables, ctx, results)
     took("the rank-count timing")
     records += update_timing(ctx, results)
     took("the TransE update timing")
@@ -1441,6 +1659,18 @@ def main() -> int:
 
     card = phase("device", device_phase)
     phase("build", build_phase)
+    if sys.argv[1:] == ["--rank-count-only"]:
+        # The rank count's checks and timing alone, for work on that kernel.
+        tables = init_tables("transe", torch.device("cuda"))
+        ctx = phase("kernels", lambda: dict(rank_worst=rank_kernel_checks(tables)))
+        records = phase("timing", rank_count_timing, tables, ctx, None)
+        print(card)
+        print(json.dumps({"kernels": records}))
+        return 0
+    if sys.argv[1:] == ["--ranking-alone"]:
+        print(json.dumps(phase("ranking", ranking_alone_phase)))
+        print(card)
+        return 0
     tables, transh, transr = (init_tables(model, torch.device("cuda")) for model in ("transe", "transh", "transr"))
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:

@@ -15,7 +15,8 @@ TransH, later TransR) rank their queries in groups, one per relation, as the
 JAX harness does: a stable sort by relation, each group padded to whole
 batches so that no batch spans two relations.  The JAX harness projects the
 entity table inside every scan trip; this one projects it once per group
-(``Model.project_entities``) and builds that group's transposed table once.
+(``Model.project_entities``) and builds that group's transposed table, and
+for L2 its squared norms, once.
 Models that score in the raw entity space (TransE) rank all queries as one
 group.  The clustered path, the mesh path and relation prediction come with
 the slices that port the models that need them.
@@ -33,6 +34,7 @@ from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.data.triples import Dataset
 from kb2e_tpu_torch.eval import ranking
 from kb2e_tpu_torch.models.base import Model, Params
+from kb2e_tpu_torch.ops import distances, rank_count
 from kb2e_tpu_torch.utils.device import resolve_device
 
 
@@ -226,14 +228,16 @@ def rank_all(
     filts = torch.empty_like(raws)
     i = 0
     for rel_id, idxs in groups:
-        # The group's table, projected once, and that table transposed.
+        # The group's table, projected once, that table transposed in the
+        # rank count's aligned layout, and for L2 its squared norms.
         proj = params["entity"] if rel_id is None else model.project_entities(params, rel_id)
-        proj_t = proj.T.contiguous()
+        proj_t = rank_count.aligned_transpose(proj)
+        e_sq = distances.squared_norms(proj_t) if distance == Distance.L2 else None
         for _ in range(0, idxs.shape[0], batch_size):
             raws[i], filts[i] = ranking.rank_feed_queries(
                 proj, proj_t, params["relation"], **feed,
                 start=i * batch_size, distance=distance, block_size=block_size,
-                batch=batch_size, kmax=kmax,
+                batch=batch_size, kmax=kmax, e_sq=e_sq,
             )
             i += 1
     return raws.reshape(-1).cpu().numpy()[real], filts.reshape(-1).cpu().numpy()[real], sizes

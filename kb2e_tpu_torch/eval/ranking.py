@@ -57,24 +57,28 @@ def rank_queries(
     filter_cands: torch.Tensor,  # int [B, Kmax] known-good entity ids, -1 padded
     distance: Distance,
     block_size: int,
-    proj_t: Optional[torch.Tensor] = None,  # [k, N] contiguous, if the caller holds it
+    proj_t: Optional[torch.Tensor] = None,  # [k, N], if the caller holds it
+    e_sq: Optional[torch.Tensor] = None,  # [N] ‖e‖² of proj_t's columns (L2), if the caller holds them
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (raw_rank, filtered_rank), both int32 [B], 1-based.
 
     Counterpart of both ``ranking.rank_queries`` and
     ``ranking.rank_queries_pallas``: the raw count is the rank-count kernel.
+    The transposed tables are built in the kernel's aligned layout
+    (``rank_count.aligned_transpose``), so it reads them in place.
     """
     if proj_t is None:
-        proj_t = proj.T.contiguous()
+        proj_t = rank_count.aligned_transpose(proj)
     # True energies on the direct residual formula (ranking.py:222).
     e_true = distances.residual_energy(proj[true_idx] - queries, distance)
     raw_count = rank_count.rank_counts(
         proj_t,
-        queries.T.contiguous(),
+        rank_count.aligned_transpose(queries),
         e_true.contiguous(),
         true_idx.to(torch.int32).contiguous(),
         distance,
         block_size,
+        e_sq=e_sq,
     )
     filt_correction = _filtered_correction(proj, queries, true_idx, filter_cands, e_true, distance)
     raw_rank = 1 + raw_count
@@ -83,7 +87,7 @@ def rank_queries(
 
 def rank_feed_queries(
     proj: torch.Tensor,  # [N, k]
-    proj_t: torch.Tensor,  # [k, N] contiguous
+    proj_t: torch.Tensor,  # [k, N], rank_count.aligned_transpose(proj)
     rel_table: torch.Tensor,  # [R, k]
     q_anchor: torch.Tensor,  # int32 [Q_pad] — whole-eval feed, on the device
     q_sign: torch.Tensor,  # float32 [Q_pad]
@@ -97,6 +101,7 @@ def rank_feed_queries(
     block_size: int,
     batch: int,
     kmax: int,
+    e_sq: Optional[torch.Tensor] = None,  # [N] ‖e‖² of proj_t's columns (L2), computed once per table
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank one batch of the device-resident query feed.
 
@@ -114,4 +119,4 @@ def rank_feed_queries(
     safe = torch.clamp(pos, max=max(filt_vals.shape[0] - 1, 0))
     filter_cands = torch.where(valid, filt_vals[safe], -1)
     queries = proj[anchor] + sign[:, None] * rel_table[rels]
-    return rank_queries(proj, queries, true_idx, filter_cands, distance, block_size, proj_t=proj_t)
+    return rank_queries(proj, queries, true_idx, filter_cands, distance, block_size, proj_t=proj_t, e_sq=e_sq)

@@ -47,8 +47,26 @@ def _args(n, k, b, distance, dev, seed, dyadic=True):
     return ent.T.contiguous(), q.T.contiguous(), e_true, t, distance
 
 
-# Ragged against every tile of the kernel: 256 entities x 32 queries x 32 k-rows.
-@pytest.mark.parametrize("n,k,b", [(200, 12, 21), (257, 33, 32), (1000, 100, 250), (14951, 100, 256)])
+def _bare_counts(args):
+    """One launch on the harness's aligned layout, with ‖e‖² and ‖q‖²
+    computed as the wrapper computes them."""
+    proj_t, queries_t, e_true, t, distance = args
+    e_sq = q_sq = None
+    if distance == Distance.L2:
+        e_sq, q_sq = distances.squared_norms(proj_t), distances.squared_norms(queries_t)
+    out = torch.zeros(queries_t.shape[1], dtype=torch.int32, device=proj_t.device)
+    proj_t, queries_t = (rank_count.aligned_transpose(x.T) for x in (proj_t, queries_t))
+    rank_count.launcher(proj_t, queries_t, e_true, t, e_sq, q_sq, out, distance)()
+    torch.cuda.synchronize()
+    return out
+
+
+# Ragged against the tile (128 entities x 256 queries x 16 k-rows a chunk)
+# and FB15k's N = 14,951, whose contiguous rows are not 16-byte aligned (the
+# wrapper pads a copy).
+@pytest.mark.parametrize("n,k,b", [(200, 12, 21), (257, 33, 32), (1000, 100, 250), (14951, 100, 256),
+                                   (127, 16, 128), (128, 17, 129), (129, 15, 127), (128, 1, 127),
+                                   (129, 100, 128), (127, 100, 129), (14951, 100, 250), (14951, 1, 3)])
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
 def test_kernel_equals_plain_version_on_dyadic_inputs(cuda, n, k, b, distance):
     args = _args(n, k, b, distance, cuda, seed=n + k + b)
@@ -62,6 +80,21 @@ def test_kernel_equals_plain_version_on_dyadic_inputs(cuda, n, k, b, distance):
     assert dict(rank_count.launch_counts) == {rank_count.KERNEL_NAMES[distance]: 1}
     # Integer atomics: the same counts on every run.
     assert torch.equal(rank_count.rank_counts(*args), got)
+
+
+# The tile's edges: n and b one below, at and one above the tile (and two
+# tiles of entities), k = 1, a chunk - 1, a chunk, a chunk + 1 and 100.
+@pytest.mark.parametrize("k_of", ["1", "chunk - 1", "chunk", "chunk + 1", "100"])
+@pytest.mark.parametrize("dn,db", [(-1, -1), (0, 0), (1, 1), (-1, 1), (1, -1), (129, 0)])
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_kernel_equals_plain_version_at_the_tile_edges(cuda, dn, db, k_of, distance):
+    plan = rank_count.plan(1, 1, 1)
+    k = {"1": 1, "chunk - 1": plan.chunk - 1, "chunk": plan.chunk, "chunk + 1": plan.chunk + 1, "100": 100}[k_of]
+    n, b = plan.tile_n + dn, plan.tile_b + db
+    args = _args(n, k, b, distance, cuda, seed=n + k + b)
+    want = rank_count.rank_counts_reference(*args)
+    assert torch.equal(_bare_counts(args), want)
+    assert torch.equal(rank_count.rank_counts(*args), want)
 
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
@@ -93,6 +126,42 @@ def test_kernel_equals_plain_version_on_near_ties(cuda, distance):
     got, want = rank_count.rank_counts(*args), rank_count.rank_counts_reference(*args)
     assert int((got > 0).sum()) > b // 2  # near ties do move counts
     assert torch.equal(got, want)
+    assert torch.equal(_bare_counts(args), want)
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_padded_leading_dimension_gives_the_counts_of_the_contiguous_table(cuda, distance):
+    proj_t, queries_t, e_true, t, _ = _args(14951, 100, 250, distance, cuda, seed=3, dyadic=False)
+    want = rank_count.rank_counts(proj_t, queries_t, e_true, t, distance)
+    aligned = rank_count.aligned_transpose(proj_t.T)
+    wide = torch.full((100, 15000), float("nan"), device=cuda)[:, :14951]  # NaN pad columns are never counted
+    wide.copy_(proj_t)
+    for table in (aligned, wide):
+        assert rank_count.kernel_takes(table) and table.stride(0) != 14951
+        assert torch.equal(rank_count.rank_counts(table, queries_t, e_true, t, distance), want)
+        assert torch.equal(rank_count.rank_counts(table, rank_count.aligned_transpose(queries_t.T), e_true, t,
+                                                  distance), want)
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_passing_e_sq_gives_the_counts_of_not_passing_it(cuda, distance):
+    proj_t, queries_t, e_true, t, _ = _args(14951, 100, 256, distance, cuda, seed=4, dyadic=False)
+    aligned = rank_count.aligned_transpose(proj_t.T)
+    e_sq = distances.squared_norms(aligned)
+    assert torch.equal(e_sq, distances.squared_norms(proj_t))
+    want = rank_count.rank_counts(proj_t, queries_t, e_true, t, distance)
+    assert torch.equal(rank_count.rank_counts(aligned, queries_t, e_true, t, distance, e_sq=e_sq), want)
+    assert torch.equal(rank_count.rank_counts_reference(proj_t, queries_t, e_true, t, distance, e_sq=e_sq),
+                       rank_count.rank_counts_reference(proj_t, queries_t, e_true, t, distance))
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_tile_takes_fb15k_in_one_wave(cuda, distance):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = rank_count.plan(100, 14951, 256)
+    per_sm = rank_count.resident_blocks_per_sm(distance)
+    # 128 registers a thread at most: a block of 512 threads fits.
+    assert per_sm >= 1 and plan.waves(per_sm, sms) <= 1
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -103,10 +172,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         (proj_t, queries_t, e_true, t.long()),
         (proj_t, queries_t, e_true.cpu(), t),
         (proj_t, queries_t[:, :8].contiguous(), e_true, t),
+        (proj_t.T.contiguous().T, queries_t, e_true, t),  # columns, not rows, contiguous
     ]
     for args in bad:
         with pytest.raises(ValueError, match="rank_counts"):
             rank_count.rank_counts(*args, distance)
+    with pytest.raises(ValueError, match="e_sq"):
+        rank_count.rank_counts(proj_t, queries_t, e_true, t, Distance.L2, e_sq=torch.ones(63, device=cuda))
 
 
 def _update_case(n, n_rel, k, b, seed, dev, dyadic=True):

@@ -25,6 +25,7 @@ from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.convert import params_from_numpy
 from kb2e_tpu_torch.data import triples
 from kb2e_tpu_torch.eval import harness
+from kb2e_tpu_torch.ops import distances, rank_count
 
 torch.set_num_threads(1)
 
@@ -54,6 +55,45 @@ def test_evaluate_metrics_equal_jax(tiny_kg_dir, tiny_dataset, distance):
     assert got == want  # every metric, to the last bit
     assert got["num_corruptions"] == 2 * dataset.test[0].shape[0]
     assert got["filtered_mean_rank"] < got["raw_mean_rank"]  # the filter does remove some
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_rank_all_computes_e_sq_once_per_group_and_equals_jax(tiny_kg_dir, tiny_dataset, distance, monkeypatch):
+    # TransR ranks in one group per relation, through the distance flag.
+    dataset = triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"))
+    rng = np.random.default_rng(12 + int(distance))
+    k = 8
+
+    def dy(shape):  # multiples of 1/8 in [-1, 1]: the projection and both energies are exact
+        return np.clip(np.round(rng.normal(size=shape) * 3) / 8, -1, 1).astype(np.float32)
+
+    host = {"entity": dy((dataset.n_entities, k)), "relation": dy((dataset.n_relations, k)),
+            "proj": dy((dataset.n_relations, k, k))}
+    knobs = dict(embedding_size=k, eval_batch_size=16, eval_block_size=24, distance=int(distance))
+    calls = []
+    counts = rank_count.rank_counts
+
+    def spy(proj_t, queries_t, e_true, true_idx, dist, block_size=4096, e_sq=None):
+        calls.append((proj_t, e_sq))
+        return counts(proj_t, queries_t, e_true, true_idx, dist, block_size, e_sq=e_sq)
+
+    monkeypatch.setattr(rank_count, "rank_counts", spy)
+    got = harness.evaluate(get_model("transr"), params_from_numpy(host, "cpu"), dataset, EmbeddingConfig(**knobs),
+                           device="cpu")
+    want = jax_harness.evaluate(
+        jax_get_model("transr"), {name: jnp.asarray(v) for name, v in host.items()}, tiny_dataset, JConfig(**knobs)
+    )
+    assert got == want  # every metric, to the last bit
+    rels = np.bincount(dataset.test[2])
+    assert len(calls) == int(sum(-(-2 * int(c) // 16) for c in rels))
+    tables = {id(proj_t): e_sq for proj_t, e_sq in calls}
+    assert len(tables) == int((rels > 0).sum()) > 1  # one table per group, several groups
+    for proj_t, e_sq in calls:
+        assert rank_count.kernel_takes(proj_t)
+        if distance == Distance.L1:
+            assert e_sq is None
+        else:  # the group's one ‖e‖², passed to each of its batches
+            assert e_sq is tables[id(proj_t)] and torch.equal(e_sq, distances.squared_norms(proj_t.contiguous()))
 
 
 def _stdout_of(fn, argv):

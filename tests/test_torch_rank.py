@@ -152,3 +152,92 @@ def test_kernel_build_runs_nvcc_once_and_raises_on_failure(tmp_path, monkeypatch
     monkeypatch.setenv("PATH", str(tmp_path / "none"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         rank_count.build()
+
+
+@pytest.mark.parametrize("b", [24, 21])
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_plain_version_with_precomputed_e_sq_equals_jax(distance, b):
+    ent, queries, true_idx, _ = _inputs(b, seed=31 + b)
+    e_true = distances.residual_energy(torch.from_numpy(ent[true_idx] - queries), distance)
+    proj = jax_ranking.pad_entities(jnp.asarray(ent), 128)
+    want = np.asarray(jax_pallas_rank.rank_counts(
+        proj.T, jnp.asarray(queries).T, jnp.asarray(e_true.numpy()), jnp.asarray(true_idx), JDistance(int(distance)),
+        tile_n=128, interpret=True,
+    ))
+    # The harness's layout: tables padded to a leading dimension of 4 floats,
+    # ‖e‖² computed once from the padded table.
+    proj_t = rank_count.aligned_transpose(torch.from_numpy(ent))
+    queries_t = rank_count.aligned_transpose(torch.from_numpy(queries))
+    e_sq = distances.squared_norms(proj_t)
+    assert torch.equal(e_sq, distances.squared_norms(torch.from_numpy(ent).T.contiguous()))
+    for block_size in (37, 4096):
+        got = rank_count.rank_counts_reference(proj_t, queries_t, e_true, torch.from_numpy(true_idx), distance,
+                                               block_size, e_sq=e_sq)
+        np.testing.assert_array_equal(got.numpy(), want)
+    got = rank_count.rank_counts(proj_t, queries_t, e_true, torch.from_numpy(true_idx), distance, e_sq=e_sq)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k_of", ["1", "chunk - 1", "chunk", "chunk + 1", "100"])
+def test_plan_covers_every_entity_query_and_k_row_once_and_reads_inside_the_padded_rows(k_of):
+    tx, ty, per_e, per_q, lanes_e, chunk, stages = rank_count.TILE
+    assert 32 % lanes_e == 0 and tx % lanes_e == 0 and ty % (32 // lanes_e) == 0  # whole warps
+    assert per_e % 4 == 0 and per_q % 4 == 0 and stages >= 2
+    k = {"1": 1, "chunk - 1": chunk - 1, "chunk": chunk, "chunk + 1": chunk + 1, "100": 100}[k_of]
+    for n in (1, per_e * tx - 1, per_e * tx, per_e * tx + 1, 14951):
+        for b in (1, per_q * ty - 1, per_q * ty, per_q * ty + 1, 21, 250):
+            p = rank_count.plan(k, n, b)
+            assert (p.tile_n, p.tile_b, p.threads) == (per_e * tx, per_q * ty, tx * ty)
+            assert (p.grid[0] - 1) * p.tile_n + p.tail_n == n and 1 <= p.tail_n <= p.tile_n
+            assert (p.grid[1] - 1) * p.tile_b + p.tail_b == b and 1 <= p.tail_b <= p.tile_b
+            assert (p.chunks - 1) * chunk + p.tail_k == k and 1 <= p.tail_k <= chunk
+            assert p.smem_bytes == 4 * stages * chunk * (p.tile_n + p.tile_b)
+            # The kernel's 16-byte copies of the last block's row: live
+            # where the column is below n, reading at most padded_ld(n)
+            # floats of the row; the dead ones are zero-filled.
+            for m, tile_m, grid_m in ((n, p.tile_n, p.grid[0]), (b, p.tile_b, p.grid[1])):
+                cols = (grid_m - 1) * tile_m + 4 * np.arange(tile_m // 4)
+                live = cols[cols < m]
+                assert live.size == -(-(m - (grid_m - 1) * tile_m) // 4)
+                assert live.max() + 4 <= rank_count.padded_ld(m)
+
+
+@pytest.mark.parametrize("b", [256, 250])
+def test_plan_takes_the_fb15k_eval_batch_in_one_query_tile(b):
+    # FB15k's eval batch (and the smoke's ragged 250): one query tile of
+    # 256, so each table row is read once a launch, and 117 blocks: one on
+    # each of 117 of an H100's 132 SMs.
+    p = rank_count.plan(100, 14951, b)
+    assert (p.tile_n, p.tile_b, p.grid, p.blocks, p.threads) == (128, 256, (117, 1), 117, 512)
+    assert (p.chunks, p.tail_k, p.tail_n, p.tail_b) == (7, 4, 14951 - 116 * 128, b)
+    assert p.smem_bytes == 4 * 3 * 16 * (128 + 256) and p.waves(1, 132) == pytest.approx(117 / 132)
+
+
+def test_aligned_transpose_pads_rows_to_four_floats_and_the_kernel_takes_it():
+    rng = np.random.default_rng(2)
+    for m in (1, 3, 4, 5, 250, 14951):
+        x = torch.from_numpy(rng.normal(size=(m, 7)).astype(np.float32))
+        x_t = rank_count.aligned_transpose(x)
+        assert x_t.shape == (7, m) and x_t.stride() == (rank_count.padded_ld(m), 1)
+        assert rank_count.padded_ld(m) % 4 == 0 and 0 <= rank_count.padded_ld(m) - m < 4
+        assert torch.equal(x_t, x.T) and rank_count.kernel_takes(x_t)
+        assert rank_count.kernel_takes(x.T.contiguous()) == (m % 4 == 0)
+    wide = torch.zeros(5, 16)
+    assert rank_count.kernel_takes(wide[:, :13]) and not rank_count.kernel_takes(wide[:, 1:])
+    assert not rank_count.kernel_takes(wide.T)  # columns, not rows, contiguous
+    # One row of 5 floats: the kernel would copy 8.
+    assert not rank_count.kernel_takes(torch.zeros(1, 5)) and rank_count.kernel_takes(torch.zeros(1, 8)[:, :5])
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_padded_tables_give_the_counts_of_contiguous_ones(distance):
+    rng = np.random.default_rng(8)
+    ent = torch.from_numpy(rng.normal(size=(N_ENT + 1, K)).astype(np.float32))
+    queries = torch.from_numpy(rng.normal(size=(23, K)).astype(np.float32))
+    true_idx = torch.from_numpy(rng.integers(0, N_ENT + 1, 23).astype(np.int32))
+    e_true = distances.residual_energy(ent[true_idx.long()] - queries, distance)
+    want = rank_count.rank_counts(ent.T.contiguous(), queries.T.contiguous(), e_true, true_idx, distance)
+    proj_t = rank_count.aligned_transpose(ent)
+    got = rank_count.rank_counts(proj_t, rank_count.aligned_transpose(queries), e_true, true_idx, distance,
+                                 e_sq=distances.squared_norms(proj_t))
+    assert torch.equal(got, want)
