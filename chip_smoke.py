@@ -81,6 +81,26 @@ non-zero exit on any failure:
                 warm-started from the planted-KG TransE fast run) in both
                 modes; filtered Hits@10 must land in the bands of
                 QUALITY_BANDS_TRANSR;
+              * CTransR (no kernel: plain torch on the card), warm-started
+                from the fast TransE run's files: ``train_ctransr`` for 2
+                fast epochs (the loss is finite and falls; the files and the
+                sidecar's extras are written; ``build_centers``' seconds),
+                ``eval_ctransr`` for ``--distance 0`` and ``1`` on them with
+                no kernel launch, each with its ranking alone; and on seeded
+                dyadic tables the routed ranks of the first N_CHECK or more
+                queries in group order equal on the card and on the CPU;
+              * CTransR quality: QUALITY.md's CTransR row (TransR's flags and
+                warm start, centers seeded by --seed 5) in both modes; the
+                parity run warns that CTransR has no parity mode and
+                launches no kernel; filtered Hits@10 must land in the bands
+                of QUALITY_BANDS_CTRANSR;
+              * relation prediction: ``eval_<model> --task relation`` on the
+                fast-trained files of TransE, TransR and CTransR: finite
+                metrics, no kernel launch, seconds and peak device memory;
+              * loader: the native triple loader must build and load, and
+                give the Python loader's arrays; the seconds of the triple
+                parse each way, of ``load_dataset`` each way, and of
+                ``read_matrix`` on TransR's ``weights.bern``;
 5. timing   — per kernel at the main path's shapes: the kernel, the plain
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
@@ -93,7 +113,10 @@ non-zero exit on any failure:
               beside its longest chain of samples that share a row (from the
               schedule's predecessors) and its count of updates, with the
               update pass's resident blocks per SM, the device time of one
-              call by kernel, and the wrapper's id check alone.
+              call by kernel, and the wrapper's id check alone.  Then
+              CTransR's fast epoch (the loop's walls, the breakdown on its
+              trained tables), its clustered eval, relation prediction and
+              the loader, each line beside the card's name and power limit.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -151,6 +174,11 @@ QUALITY_BAND_TRANSH = (0.383, 0.463)
 # 0.499 there, +-0.04 in fast mode.  Parity mode must keep at least the
 # TransE band's low end, so the warm start is not lost.
 QUALITY_BANDS_TRANSR = {"fast": (0.459, 0.539), "parity": (0.399, 1.0)}
+# QUALITY.md's CTransR row (QUALITY.md:22, examples/quality_run.py:105-118):
+# TransR's rate and warm start, centers seeded by --seed 5; filtered Hits@10
+# 0.512 there, +-0.04 in fast mode.  Its parity mode is the fast update at
+# batch granularity, held to TransR's parity floor.
+QUALITY_BANDS_CTRANSR = {"fast": (0.472, 0.552), "parity": (0.399, 1.0)}
 # (learning rate, projector cap) of the TransH update's checks against its
 # plain version: bench.py's rate and the default cap, which the main path
 # runs, then lr 0.05 with caps of 2 and of 1.  On TransH-init tables few
@@ -668,6 +696,12 @@ def main_phase(tables, work: str, data_dir: str, out_dir: str, transh_dir: str, 
     seed = ["--seeddatadir", os.path.join(work, "planted_transe_fast"), "--seedmethod", "1"]
     results["transr_quality"] = quality_path(work, "transr", QUALITY_BANDS_TRANSR, "transr_update_l1",
                                              "QUALITY.md 0.499", quality_flags("0.01") + seed)
+    results.update(ctransr_paths(work, data_dir))
+    # The parity run warns and launches no kernel: CTransR has no parity mode.
+    results["ctransr_quality"] = quality_path(work, "ctransr", QUALITY_BANDS_CTRANSR, None,
+                                              "QUALITY.md 0.512", quality_flags("0.01") + seed)
+    results["relation"] = relation_prediction_path(work, data_dir)
+    results["loader"] = loader_path(data_dir, transr_dir)
     return results
 
 
@@ -958,10 +992,14 @@ def transr_training_paths(work: str, data_dir: str):
     return dict(transr_fast=fast, transr_fast_eval=trained, transr_parity=dict(launches=launches[name], records=records))
 
 
-def quality_path(work: str, model: str, bands: dict, parity_kernel: str, reference: str, flags=QUALITY_FLAGS):
+def quality_path(work: str, model: str, bands: dict, parity_kernel, reference: str, flags=QUALITY_FLAGS):
     """QUALITY.md's planted-KG setting for ``model`` in both modes, each
-    scored through the rank count; filtered Hits@10 must land in
-    ``bands[mode]``."""
+    scored by ``eval_<model>``; filtered Hits@10 must land in
+    ``bands[mode]``.  The parity run launches ``parity_kernel`` once a batch;
+    a model without a parity mode (``parity_kernel`` None: CTransR) must warn
+    and launch no kernel, and a cluster-aware model's eval launches none."""
+    import warnings
+
     from kb2e_tpu_torch import get_model
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.data import synthetic
@@ -970,22 +1008,259 @@ def quality_path(work: str, model: str, bands: dict, parity_kernel: str, referen
     n_ent, n_rel, n_triples, seed = QUALITY_KG
     kg = os.path.join(work, "planted")
     synthetic.write_kg_dir(kg, synthetic.planted_kg(n_ent, n_rel, n_triples, seed=seed), n_ent, n_rel, seed=seed)
-    n_eval = eval_launches(kg, grouped=get_model(model).needs_projection)
+    m = get_model(model)
+    eval_expect = {} if m.cluster_aware else {rank_count.KERNEL_NAMES[Distance.L1]: eval_launches(kg, m.needs_projection)}
+    parity_expect = {} if parity_kernel is None else {parity_kernel: QUALITY_BATCHES * QUALITY_EPOCHS}
     hits = {}
-    for mode, expect in (("fast", {}), ("parity", {parity_kernel: QUALITY_BATCHES * QUALITY_EPOCHS})):
+    for mode, expect in (("fast", {}), ("parity", parity_expect)):
         out = os.path.join(work, f"planted_{model}_{mode}")
-        train_run(["--datadir", kg, "--outdir", out, *flags, "--update-mode", mode],
-                  os.path.join(work, f"planted_{model}_{mode}.jsonl"), expect, f"planted KG, {model} {mode}, {QUALITY_EPOCHS} epochs",
-                  model=model)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_run(["--datadir", kg, "--outdir", out, *flags, "--update-mode", mode],
+                      os.path.join(work, f"planted_{model}_{mode}.jsonl"), expect,
+                      f"planted KG, {model} {mode}, {QUALITY_EPOCHS} epochs", model=model)
+        warned = [str(w.message) for w in caught if "--update-mode parity has no effect" in str(w.message)]
+        check(len(warned) == (mode == "parity" and not m.has_parity_mode),
+              f"planted KG, {model} {mode}: parity warnings {warned}")
+        if warned:
+            print(f"[main] planted KG, {model} parity: warned {warned[0]!r}", flush=True)
         metrics = eval_run(["--datadir", kg, "--outdir", out, "--size", str(QUALITY_SIZE), "--method", "1"],
-                           {rank_count.KERNEL_NAMES[Distance.L1]: n_eval}, f"planted KG, {model} {mode}: eval_{model}",
-                           model=model)
+                           eval_expect, f"planted KG, {model} {mode}: eval_{model}", model=model)
         hits[mode] = metrics["filtered_hits10"]
         check(bands[mode][0] <= hits[mode] <= bands[mode][1],
               f"planted KG, {model} {mode}: filtered Hits@10 {hits[mode]} outside {bands[mode]}")
     print(f"[main] planted KG {model} filtered Hits@10: fast {hits['fast']:.6f}, parity {hits['parity']:.6f} "
           f"(bands {bands}; {reference}, chance {10 / n_ent:.3f})", flush=True)
     return hits
+
+
+def read_params(model_name: str, out_dir: str):
+    """``model_name``'s tables as ``eval_<model>`` reads them from ``out_dir``, on the card."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.constants import Method
+    from kb2e_tpu_torch.io import text
+
+    model = get_model(model_name)
+    host = text.read_embeddings(out_dir, Method.BERN, N_ENTITIES, N_RELATIONS, K,
+                                weights_shape=model.weights_shape(N_RELATIONS, K))
+    names = {"entity": "entity", "relation": "relation", **{key: name for name, key in model.file_extras.items()}}
+    if model.weights_key:
+        names[model.weights_key] = "weights"
+    return {key: torch.from_numpy(host[name].astype(np.float32)).cuda() for key, name in names.items()}
+
+
+def loader_path(data_dir: str, transr_dir: str):
+    """The native triple loader on the FB15k-shaped directory against the
+    Python one: it must build and load, and give the same arrays; the
+    seconds of the triple parse (three splits, 592,213 rows), of
+    ``load_dataset`` (the parse, the id maps, the sort and bern statistics)
+    each way, and of ``io/text.py::read_matrix`` on TransR's ``weights.bern``
+    (13.45M values) and on ``entity2vec.bern``: the split of an eval's
+    loading."""
+    from kb2e_tpu_torch.constants import Method
+    from kb2e_tpu_torch.data import native, triples, vocab
+    from kb2e_tpu_torch.io import text
+
+    check(native.available(), "the native loader did not build or load (the reason is on stderr)")
+    e2i, r2i = (vocab.load_id_file(os.path.join(data_dir, name)) for name in ("entity2id.txt", "relation2id.txt"))
+    paths = [os.path.join(data_dir, f"{split}.txt") for split in ("train", "valid", "test")]
+    parse, arrays = {}, {}
+    for name, loader in (("native", native.load_triple_file), ("python", triples.load_triple_file)):
+        t0 = time.perf_counter()
+        arrays[name] = [loader(path, e2i, r2i) for path in paths]
+        parse[name] = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for x, y in zip(arrays["native"], arrays["python"]) for a, b in zip(x, y)),
+          "the native loader's arrays differ from the Python loader's")
+    dataset_s = {}
+    for name, use_native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        triples.load_dataset(data_dir, splits=("train", "valid", "test"), use_native=use_native)
+        dataset_s[name] = time.perf_counter() - t0
+    tag = Method.BERN.tag
+    t0 = time.perf_counter()
+    text.read_matrix(os.path.join(transr_dir, f"weights.{tag}"), N_RELATIONS * K, K)
+    weights_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text.read_matrix(os.path.join(transr_dir, f"entity2vec.{tag}"), N_ENTITIES, K)
+    entity_s = time.perf_counter() - t0
+    n_rows = sum(a[0].shape[0] for a in arrays["native"])
+    print(f"[main] loader: {os.path.relpath(native.library_path(), ROOT)} (built at the run's first load); "
+          f"triple parse of {n_rows} rows: native "
+          f"{parse['native']:.3f} s, Python {parse['python']:.3f} s ({parse['python'] / parse['native']:.1f} times); "
+          f"load_dataset: native {dataset_s['native']:.3f} s, Python {dataset_s['python']:.3f} s; read_matrix: "
+          f"TransR weights.bern ({N_RELATIONS * K * K} values) {weights_s:.3f} s, entity2vec.bern "
+          f"({N_ENTITIES * K} values) {entity_s:.3f} s", flush=True)
+    return dict(parse=parse, dataset=dataset_s, weights_s=weights_s, entity_s=entity_s)
+
+
+def ctransr_paths(work: str, data_dir: str):
+    """bench.py's configuration through ``train_ctransr``, warm-started from
+    the fast TransE run's files: 2 fast epochs with the seconds of
+    ``build_centers``, the files and their extras; ``eval_ctransr`` on them
+    for both distance flags with no kernel launch, each with its ranking
+    alone (``rank_all``); and the routed ranks of seeded dyadic tables on
+    the card against the CPU."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.cli import eval as eval_cli
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.models import ctransr
+
+    seed = ["--seeddatadir", os.path.join(work, "trained_fast"), "--seedmethod", "1"]
+    out = os.path.join(work, "ctransr_fast")
+    build, centers_s = ctransr.build_centers, []
+
+    def timed_centers(*args, **kwargs):
+        t0 = time.perf_counter()
+        centers = build(*args, **kwargs)
+        centers_s.append(time.perf_counter() - t0)
+        return centers
+
+    ctransr.build_centers = timed_centers
+    try:
+        fast, _ = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2", *seed],
+                            os.path.join(work, "ctransr_fast.jsonl"), {},
+                            "train_ctransr fast, 2 epochs (warm start: train_transe's fast files)", model="ctransr")
+    finally:
+        ctransr.build_centers = build
+    check(len(centers_s) == 1, f"build_centers ran {len(centers_s)} times")
+    check(fast[1]["loss"] < fast[0]["loss"], "the CTransR fast loss does not fall")
+    for name in ("entity2vec.bern", "relation2vec.bern", "weights.bern", "relation_clusters.bern",
+                 "cluster_centers.bern", "embedding_meta.json"):
+        check(os.path.exists(os.path.join(out, name)), f"{name} not written")
+    with open(os.path.join(out, "embedding_meta.json"), encoding="utf-8") as f:
+        extras = json.load(f)["extras"]
+    shape = [N_RELATIONS, get_model("ctransr").n_clusters, K]
+    check(extras == {"relation_clusters": shape, "cluster_centers": shape}, f"sidecar extras {extras}")
+    print(f"[main] CTransR warm start: build_centers (k-means of {N_TRAIN} seed offsets, {shape[1]} clusters for "
+          f"each of {N_RELATIONS} relations, on the host) {centers_s[0]:.3f} s", flush=True)
+
+    model = get_model("ctransr")
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
+    params = read_params("ctransr", out)
+    evals = {}
+    for flag in (Distance.L1, Distance.L2):
+        argv = ["--datadir", data_dir, "--outdir", out, "--size", str(K), "--method", "1",
+                "--distance", str(int(flag)), "--seed", str(SEED)]
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eval_cli.main(argv, model_name="ctransr")
+        wall = time.perf_counter() - t0
+        launches = all_launch_counts()
+        check(launches == {}, f"eval_ctransr --distance {int(flag)}: launches {launches}, expected none")
+        check(m["num_corruptions"] == 2 * N_TEST, f"{m['num_corruptions']} corruptions ranked")
+        check(all(np.isfinite(v) for v in m.values()), f"eval_ctransr metrics {m}")
+        check(1 <= m["filtered_mean_rank"] <= m["raw_mean_rank"] <= N_ENTITIES, "mean ranks out of order")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K, distance=flag),
+                                            device="cuda")
+        rank_wall = time.perf_counter() - t0
+        check(harness.metrics_from_ranks(raw, filt, sizes) == m, "a second run of the routed ranks gives other metrics")
+        print(f"[main] eval_ctransr --distance {int(flag)} on the fast-trained files: {2 * N_TEST} queries in "
+              f"{len(sizes)} batches of {N_RELATIONS} relation groups, launches {launches}, eval wall {wall:.2f} s "
+              f"(loading included), ranking alone (rank_all) {rank_wall:.3f} s; raw MR {m['raw_mean_rank']:.6f} "
+              f"H@10 {m['raw_hits10']:.6f}, filtered MR {m['filtered_mean_rank']:.6f} H@10 "
+              f"{m['filtered_hits10']:.6f}", flush=True)
+        evals[flag] = dict(wall=wall, rank_wall=rank_wall, batches=len(sizes), metrics=m)
+    subset = first_relations_test(dataset)
+    routed_ranks_check(model, dataset, subset)
+    return dict(ctransr_fast=fast, ctransr_eval=evals, centers_s=centers_s[0], ctransr_params=params,
+                ctransr_data=(dataset, subset))
+
+
+def first_relations_test(dataset):
+    """The test triples of the first relations, at least N_CHECK queries:
+    the first groups of the harness's order."""
+    th, tt, tr = dataset.test
+    r_cut = int(np.searchsorted(np.cumsum(np.bincount(tr, minlength=N_RELATIONS)), N_CHECK // 2)) + 1
+    sel = tr < r_cut
+    return th[sel], tt[sel], tr[sel]
+
+
+def routed_ranks_check(model, dataset, subset):
+    """Seeded dyadic CTransR tables at FB15k's width (multiples of 1/8: every
+    product and sum of the projection, the routing and both energies is
+    exact): the routed ranks of ``subset`` (``first_relations_test``: at
+    least N_CHECK queries, the first groups of the harness's order), on the
+    card in batches of 256 and on the CPU (``rank_queries_clustered``
+    through ``rank_all``, batches of 32), for each distance: equal, raw and
+    filtered."""
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.eval import harness
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def dy(shape, scale):
+        return torch.from_numpy(np.clip(np.round(rng.normal(size=shape) * scale) / 8, -1, 1).astype(np.float32))
+
+    c = model.n_clusters
+    host = dict(entity=dy((N_ENTITIES, K), 2), relation=dy((N_RELATIONS, K), 2), proj=dy((N_RELATIONS, K, K), 1),
+                relation_c=dy((N_RELATIONS, c, K), 2), centers=dy((N_RELATIONS, c, K), 2))
+    r_cut = int(subset[2].max()) + 1
+    for distance in (Distance.L1, Distance.L2):
+        cfg = EmbeddingConfig(embedding_size=K, distance=distance)
+        t0 = time.perf_counter()
+        card = harness.rank_all(model, {k: v.cuda() for k, v in host.items()}, dataset, cfg, test_triples=subset,
+                                device="cuda")[:2]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = harness.rank_all(model, host, dataset, cfg.replace(eval_batch_size=32), test_triples=subset,
+                               device="cpu")[:2]
+        cpu_s = time.perf_counter() - t0
+        n_off = int(sum((a != b).sum() for a, b in zip(card, cpu)))
+        check(n_off == 0, f"routed ranks {distance.name}: {n_off} of {2 * card[0].shape[0]} differ between the card "
+                          "and the CPU on dyadic tables")
+        print(f"[main] CTransR routed ranks {distance.name} on dyadic tables: the {card[0].shape[0]} queries of "
+              f"relations 0-{r_cut - 1}, raw and filtered, equal on the card ({card_s:.2f} s) and on the CPU "
+              f"({cpu_s:.2f} s)", flush=True)
+
+
+def relation_prediction_path(work: str, data_dir: str):
+    """``eval_<model> --task relation`` on TransE's, TransR's and CTransR's
+    fast-trained FB15k-shaped files: finite metrics, no kernel launch, the
+    eval's wall (loading included), the scoring alone
+    (``harness.relation_ranks`` on loaded data), and the peak device memory
+    of each."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.cli import eval as eval_cli
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
+    results = {}
+    for model_name, out in (("transe", "trained_fast"), ("transr", "transr_fast"), ("ctransr", "ctransr_fast")):
+        out = os.path.join(work, out)
+        argv = ["--datadir", data_dir, "--outdir", out, "--size", str(K), "--method", "1", "--seed", str(SEED),
+                "--task", "relation"]
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = eval_cli.main(argv, model_name=model_name)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = all_launch_counts()
+        check(launches == {}, f"eval_{model_name} --task relation: launches {launches}, expected none")
+        check(m["num_corruptions"] == N_TEST and all(np.isfinite(v) for v in m.values()), f"relation metrics {m}")
+        check(1 <= m["filtered_mean_rank"] <= m["raw_mean_rank"] <= N_RELATIONS, "relation mean ranks out of order")
+        params = read_params(model_name, out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, filt, sizes = harness.relation_ranks(get_model(model_name), params, dataset,
+                                                  EmbeddingConfig(embedding_size=K), device="cuda")
+        score_s = time.perf_counter() - t0
+        check(harness.metrics_from_ranks(raw, filt, sizes) == m, "a second run of the relation ranks differs")
+        print(f"[main] eval_{model_name} --task relation: {N_TEST} triples x {N_RELATIONS} relations in "
+              f"{len(sizes)} batches, launches {launches}, eval wall {wall:.2f} s (loading included), scoring alone "
+              f"{score_s:.3f} s, peak device memory {peak / 2**20:.1f} MiB; raw MR {m['raw_mean_rank']:.6f} Hits@1 "
+              f"{m['raw_hits1']:.6f}, filtered MR {m['filtered_mean_rank']:.6f} Hits@1 {m['filtered_hits1']:.6f}",
+              flush=True)
+        results[model_name] = dict(wall=wall, score_s=score_s, peak=peak, metrics=m)
+    return results
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1238,7 +1513,7 @@ def transr_timing(ctx, results):
 
 
 def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, parity_reps: int = 3,
-                    profile_window=None):
+                    profile_window=None, parity: bool = True):
     """Where one fast epoch and one parity epoch of ``model_name`` spend their
     time at bench.py's configuration: the epoch on CUDA events (median of a
     few runs), the card's busy time in one more run from torch.profiler, and
@@ -1247,7 +1522,8 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
     pairs.  ``profile_window`` profiles only the fast epoch's first that many
     updates, set against their own wall: the profiler's cost grows with the
     launches, to minutes for TransR's 1,888 chunks.  Ends with the seconds
-    it took, and those of the two profiled runs."""
+    it took, and those of the two profiled runs.  ``parity=False`` leaves
+    the parity epoch out (CTransR's parity mode is its fast update)."""
     from kb2e_tpu_torch import EmbeddingConfig, get_model
     from kb2e_tpu_torch.train import step
 
@@ -1290,14 +1566,15 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
     _, fast_ms, fast_host_ms = timed(lambda: runner(params, gen, data), reps=fast_reps)
     batches, sample_ms, _ = timed(lambda: runner.sample(gen, data), reps=fast_reps)
     _, apply_ms, _ = timed(lambda: runner.apply(params, batches, data.n_entities), reps=fast_reps)
-    _, parity_ms, parity_host_ms = timed(parity_epoch, reps=parity_reps)
-    p_sample = p_update = 0.0
-    p = params
-    for _ in range(N_BATCHES):
-        b, ms, _ = timed(lambda: step.sample_batch(gen, data, pcfg, TRAIN_BATCH))
-        p_sample += ms
-        (p, _), ms, _ = timed(lambda: model.sequential_update(p, b, pcfg))
-        p_update += ms
+    if parity:
+        _, parity_ms, parity_host_ms = timed(parity_epoch, reps=parity_reps)
+        p_sample = p_update = 0.0
+        p = params
+        for _ in range(N_BATCHES):
+            b, ms, _ = timed(lambda: step.sample_batch(gen, data, pcfg, TRAIN_BATCH))
+            p_sample += ms
+            (p, _), ms, _ = timed(lambda: model.sequential_update(p, b, pcfg))
+            p_update += ms
     # Profiled last: the host launches more slowly once the profiler has run.
     if profile_window is None:
         busy_of, window_ms = "the epoch", fast_ms
@@ -1311,7 +1588,8 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
         fast_busy = device_busy_ms(lambda: runner.apply(params, part, data.n_entities),
                                    f"{model_name} fast epoch's first {profile_window} updates")
     t_fast_profiled = time.perf_counter() - t_profiled
-    parity_busy = device_busy_ms(parity_epoch, f"{model_name} parity epoch")
+    if parity:
+        parity_busy = device_busy_ms(parity_epoch, f"{model_name} parity epoch")
     t_profiled = time.perf_counter() - t_profiled
     print(f"[timing] {model_name} fast epoch at B={TRAIN_BATCH} x {N_BATCHES}: {fast_ms:.3f} ms on the card's clock "
           f"({fast_host_ms:.3f} ms on the host's; medians of {fast_reps}), device busy {fast_busy:.3f} ms over "
@@ -1319,10 +1597,11 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
           f"{sample_ms:.3f} ms, "
           f"{next(iter(batches.values())).shape[0]} {'fused ' if runner.fused else ''}"
           f"{'chunk ' if runner.chunk else ''}updates {apply_ms:.3f} ms", flush=True)
-    print(f"[timing] {model_name} parity epoch: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms on "
-          f"the host's; medians of {parity_reps}), device busy {parity_busy:.3f} ms, idle share "
-          f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {N_BATCHES} "
-          f"sequential updates {p_update:.3f} ms", flush=True)
+    if parity:
+        print(f"[timing] {model_name} parity epoch: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms "
+              f"on the host's; medians of {parity_reps}), device busy {parity_busy:.3f} ms, idle share "
+              f"{idle(parity_busy, parity_ms)}; each step synchronised: sampling {p_sample:.3f} ms, {N_BATCHES} "
+              f"sequential updates {p_update:.3f} ms", flush=True)
     print(f"[timing] {model_name} breakdown took {time.perf_counter() - t_start:.1f} s, of it the profiled runs "
           f"{t_profiled:.1f} s (the fast epoch {t_fast_profiled:.1f} s)", flush=True)
 
@@ -1614,6 +1893,61 @@ def ranking_alone_phase(reps: int = 3):
     return seconds
 
 
+def ctransr_timing(ctx, results):
+    """CTransR's fast epoch at bench.py's configuration (the loop's walls;
+    the breakdown on its trained tables, as TransR's), its clustered eval
+    and ranking alone,
+    relation prediction and the loader, beside the card's name and power
+    limit.  No kernel: CTransR's paths are plain torch on the card."""
+    card = card_line()
+    fast = results["ctransr_fast"]
+    print(f"[timing] {card}: train_ctransr fast at bench.py's configuration: epoch walls "
+          + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
+          + f"; build_centers {results['centers_s']:.3f} s", flush=True)
+    # Two runs a part and the profiler on 118 chunks, where TransR takes
+    # three and 236: the added phases stay near three minutes.
+    epoch_breakdown(ctx, "ctransr", results["ctransr_params"], fast_reps=2, profile_window=118, parity=False)
+    # The routed sweep's device share on the first groups (the profiler on
+    # all 1,345 batches would take longer than the eval).
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.eval import harness
+
+    dataset, subset = results["ctransr_data"]
+    for distance in (Distance.L1, Distance.L2):
+        cfg = EmbeddingConfig(embedding_size=K, distance=distance)
+
+        def rank():
+            return harness.rank_all(get_model("ctransr"), results["ctransr_params"], dataset, cfg,
+                                    test_triples=subset, device="cuda")
+
+        rank()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sizes = rank()[2]
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy = device_busy_ms(rank, f"ctransr routed ranking {distance.name}, {len(sizes)} batches")
+        wall = float(np.median(walls))
+        print(f"[timing] {card}: ctransr routed ranking {distance.name} of {2 * subset[0].shape[0]} queries in "
+              f"{len(sizes)} batches: {wall:.3f} ms (median of 3; {wall / len(sizes):.3f} ms a batch), device busy "
+              f"{busy:.3f} ms, idle share "
+              + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured (no device time in the profile)"), flush=True)
+    print(f"[timing] {card}: eval_ctransr (cluster-routed, plain torch) "
+          + "; ".join(f"--distance {int(flag)}: eval {ev['wall']:.2f} s, ranking alone {ev['rank_wall']:.3f} s over "
+                      f"{ev['batches']} batches ({ev['rank_wall'] / ev['batches'] * 1e3:.3f} ms a batch)"
+                      for flag, ev in results["ctransr_eval"].items()), flush=True)
+    print(f"[timing] {card}: relation prediction "
+          + "; ".join(f"{name}: eval {r['wall']:.2f} s, scoring alone {r['score_s']:.3f} s, peak "
+                      f"{r['peak'] / 2**20:.1f} MiB" for name, r in results["relation"].items()), flush=True)
+    ld = results["loader"]
+    print(f"[timing] {card}: loading the FB15k-shaped directory: triple parse native {ld['parse']['native']:.3f} s, "
+          f"Python {ld['parse']['python']:.3f} s; load_dataset native {ld['dataset']['native']:.3f} s, Python "
+          f"{ld['dataset']['python']:.3f} s; read_matrix TransR weights.bern {ld['weights_s']:.3f} s, entity2vec "
+          f"{ld['entity_s']:.3f} s", flush=True)
+
+
 def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
 
@@ -1643,6 +1977,9 @@ def timing_phase(tables, ctx, results):
     # and the profiler on an eighth of its fast epoch's 1,888 chunks (the
     # whole took 4 minutes), to keep the smoke near half its time limit.
     epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, profile_window=236)
+    lap = time.perf_counter()
+    ctransr_timing(ctx, results)
+    took("the CTransR timing")
     return records
 
 

@@ -17,6 +17,19 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
+MODELS = ("transe", "transh", "transr", "ctransr", "ptranse")
+# Where each model not ported yet stands in ROADMAP.md's Queue 1.
+NOT_PORTED = {"ptranse": "Queue 1 item 5 (PTransE)"}
+
+
+def check_ported(model_name: str) -> None:
+    """Raise ``NotImplementedError`` for a model the port does not run yet."""
+    if model_name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{model_name} is not ported to kb2e_tpu_torch yet: ROADMAP.md {NOT_PORTED[model_name]}"
+        )
+
+
 def build_parser(prog: str, description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=prog, description=description)
 

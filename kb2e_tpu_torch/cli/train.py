@@ -5,8 +5,7 @@ is the analogue of the reference's ``trainTransE`` main
 (``transe/bin/trainTransE.cpp:9-20``): parse args, echo options, train,
 write reference-format embedding files.  Runs on ``--device`` (default
 ``cuda``).  ``--model`` keeps the JAX package's choices; the port trains
-TransE, TransH and TransR, and the other models raise until their slices
-land.
+TransE, TransH, TransR and CTransR, and PTransE raises until its slice lands.
 """
 
 from __future__ import annotations
@@ -28,13 +27,6 @@ from kb2e_tpu_torch.utils import logging as log_lib
 from kb2e_tpu_torch.utils import profiling
 from kb2e_tpu_torch.utils.device import resolve_device
 
-MODELS = ("transe", "transh", "transr", "ctransr", "ptranse")
-# Where each model not ported yet stands in ROADMAP.md's Queue 1.
-NOT_PORTED = {
-    "ctransr": "Queue 1 item 10 (CTransR)",
-    "ptranse": "Queue 1 item 11 (PTransE)",
-}
-
 
 def run_training(
     model_name: str,
@@ -48,8 +40,7 @@ def run_training(
     device="cuda",
 ):
     """Train ``model_name`` and write its embedding files; returns the params."""
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(f"{model_name} is not ported to kb2e_tpu_torch yet: ROADMAP.md {NOT_PORTED[model_name]}")
+    common.check_ported(model_name)
     dev = resolve_device(device)
     model = model_base.get_model(model_name)
     print(cfg.describe())
@@ -91,6 +82,7 @@ def run_training(
     text_io.write_embeddings(
         cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
         weights=host[model.weights_key] if model.weights_key else None, model_name=model_name,
+        extras={name: host[key] for name, key in model.file_extras.items()} or None,
     )
     return params
 
@@ -102,9 +94,12 @@ def _maybe_warm_start(model, cfg: EmbeddingConfig, ts, device):
     The initial tables come from a generator seeded with
     ``seed ^ 0x5EED`` (the JAX package's warm-start key), then the entities
     and relations are replaced by ``entity2vec.<tag>`` / ``relation2vec.<tag>``
-    of ``--seeddatadir`` (``--seedmethod``'s tag).  The reference fails when
-    the seed files are missing; here the model starts from those random
-    tables with a warning.
+    of ``--seeddatadir`` (``--seedmethod``'s tag).  CTransR then takes its
+    cluster centers from ``build_centers`` on the warm-started entities,
+    seeded with ``cfg.resolved_seed()``; its ``relation_c`` keeps the init
+    broadcast, as in the JAX package.  The reference fails when the seed
+    files are missing; here the model starts from those random tables (for
+    CTransR with zero centers) with a warning.
     """
     tag = C.Method.from_any(cfg.seed_method).tag
     ent_path = os.path.join(cfg.seed_data_dir, f"{C.ENTITY_EMBEDDING_BASENAME}.{tag}")
@@ -120,7 +115,14 @@ def _maybe_warm_start(model, cfg: EmbeddingConfig, ts, device):
         return params
     ent = text_io.read_matrix(ent_path, ts.n_entities, cfg.embedding_size)
     rel = text_io.read_matrix(rel_path, ts.n_relations, cfg.embedding_size)
-    return model.warm_start_params(params, ent, rel)
+    params = model.warm_start_params(params, ent, rel)
+    if model.cluster_aware:
+        from kb2e_tpu_torch.models import ctransr
+
+        centers = ctransr.build_centers(params["entity"].cpu().numpy(), ts.heads, ts.tails, ts.rels, ts.n_relations,
+                                        model.n_clusters, seed=cfg.resolved_seed())
+        params = model.with_centers(params, centers)
+    return params
 
 
 def _make_valid_eval(model, cfg: EmbeddingConfig, dataset, device):
@@ -139,7 +141,7 @@ def _make_valid_eval(model, cfg: EmbeddingConfig, dataset, device):
 def main(argv=None, model_name=None):
     parser = common.build_parser("kb2e-train", "Train Trans* knowledge-graph embeddings")
     if model_name is None:
-        parser.add_argument("--model", default="transe", choices=MODELS)
+        parser.add_argument("--model", default="transe", choices=common.MODELS)
     args = parser.parse_args(argv)
     cfg = common.config_from_args(args)
     with profiling.capture_trace(args.profile_dir):

@@ -14,8 +14,9 @@ Reference semantics reproduced here:
 Triples are host-side struct-of-arrays int32; the modules that need them on
 the card move them there.  The cuckoo membership index of the training
 sampler is built by the trainer (``train/step.py::DeviceData``), not when the
-set is made, so loading for evaluation does not pay for it.  The C++ fast
-loader is not ported yet.
+set is made, so loading for evaluation does not pay for it.
+:func:`load_dataset` parses with the C++ loader of ``data/native.py`` where it
+builds, else with :func:`load_triple_file`.
 """
 
 from __future__ import annotations
@@ -210,13 +211,25 @@ def load_dataset(
     *,
     splits: Tuple[str, ...] = ("train",),
     filter_with_eval_splits: bool = False,
+    use_native: bool = True,
 ) -> Dataset:
-    """Load a reference-layout data directory with the pure-Python parser.
+    """Load a reference-layout data directory.
 
     ``filter_with_eval_splits=True`` reproduces the evaluation harness's
     filter-set construction (test+train+valid all enter the known-good set,
     common/evaluation.cpp:55-61).
+
+    ``use_native=True`` parses the triple files with the C++ loader
+    (``data/native.py``) when it builds and loads, else with the Python
+    parser; both give the same arrays.
     """
+    loader = load_triple_file
+    if use_native:
+        from kb2e_tpu_torch.data import native
+
+        if native.available():
+            loader = native.load_triple_file
+
     entity2id = vocab.load_id_file(os.path.join(data_dir, C.ENTITY_ID_FILE))
     relation2id = vocab.load_id_file(os.path.join(data_dir, C.RELATION_ID_FILE))
 
@@ -225,7 +238,7 @@ def load_dataset(
     for split in splits:
         path = os.path.join(data_dir, split_files[split])
         if os.path.exists(path):
-            arrays[split] = load_triple_file(path, entity2id, relation2id)
+            arrays[split] = loader(path, entity2id, relation2id)
 
     if "train" not in arrays:
         raise FileNotFoundError(f"missing {C.TRAIN_FILE} in {data_dir}")

@@ -85,6 +85,14 @@ def rank_queries(
     return raw_rank, raw_rank - filt_correction
 
 
+def feed_candidates(lo: torch.Tensor, cnt: torch.Tensor, filt_vals: torch.Tensor, kmax: int) -> torch.Tensor:
+    """[B, kmax] filter candidates of a feed batch: ``filt_vals`` at
+    ``lo + iota`` where ``iota < cnt``, else -1."""
+    iota = torch.arange(kmax, dtype=torch.int32, device=filt_vals.device)[None, :]
+    safe = torch.clamp(lo[:, None] + iota, max=max(filt_vals.shape[0] - 1, 0))
+    return torch.where(iota < cnt[:, None], filt_vals[safe], -1)
+
+
 def rank_feed_queries(
     proj: torch.Tensor,  # [N, k]
     proj_t: torch.Tensor,  # [k, N], rank_count.aligned_transpose(proj)
@@ -111,12 +119,7 @@ def rank_feed_queries(
     r, built on the device.
     """
     sl = slice(start, start + batch)
-    anchor, sign, rels = q_anchor[sl], q_sign[sl], q_rel[sl]
-    true_idx, lo, cnt = q_true[sl], q_lo[sl], q_count[sl]
-    iota = torch.arange(kmax, dtype=torch.int32, device=proj.device)[None, :]
-    pos = lo[:, None] + iota
-    valid = iota < cnt[:, None]
-    safe = torch.clamp(pos, max=max(filt_vals.shape[0] - 1, 0))
-    filter_cands = torch.where(valid, filt_vals[safe], -1)
+    anchor, sign, rels, true_idx = q_anchor[sl], q_sign[sl], q_rel[sl], q_true[sl]
+    filter_cands = feed_candidates(q_lo[sl], q_count[sl], filt_vals, kmax)
     queries = proj[anchor] + sign[:, None] * rel_table[rels]
     return rank_queries(proj, queries, true_idx, filter_cands, distance, block_size, proj_t=proj_t, e_sq=e_sq)

@@ -17,7 +17,10 @@ virtual-hook surface (``common/trainer.h:58-77``):
   the card.
 * ``project_entities`` / ``relation_vector`` — the evaluation hooks: every
   Trans* model evaluates as a distance sweep in a per-relation projected
-  space (see kb2e_tpu_torch/ops/distances.py).
+  space (see kb2e_tpu_torch/ops/distances.py); a ``cluster_aware`` model
+  (CTransR) routes each candidate to a cluster vector instead.
+* ``relation_scores``    — E(h, r′, t) for a range of candidate relations r′
+  (relation prediction).
 """
 
 from __future__ import annotations
@@ -74,6 +77,12 @@ class Model(abc.ABC):
     weights_key: Optional[str] = None
     # True if training starts from TransE seed files (``warm_start_params``).
     has_warm_start: bool = False
+    # True if eval routes each candidate to a per-relation cluster vector
+    # (``cluster_vectors`` / ``cluster_centers``, eval/ranking_cluster.py).
+    cluster_aware: bool = False
+    # Tables written beside the reference files as ``<name>.<tag>`` and read
+    # back by eval: file name -> params key.
+    file_extras: Dict[str, str] = {}
 
     @abc.abstractmethod
     def init_params(
@@ -108,6 +117,16 @@ class Model(abc.ABC):
     def relation_vector(self, params: Params, rel: torch.Tensor) -> torch.Tensor:
         return params["relation"][rel]
 
+    def relation_scores(self, params: Params, h: torch.Tensor, t: torch.Tensor, rels: slice,
+                        distance: Distance) -> torch.Tensor:
+        """[B, R′] energies E(h[b], r′, t[b]) for the relations r′ of ``rels``:
+        ``energy`` on each (pair, r′) row, pair-major as the JAX package
+        repeats them."""
+        r = torch.arange(params["relation"].shape[0], device=h.device)[rels]
+        n = r.shape[0]
+        return self.energy(params, h.repeat_interleave(n), t.repeat_interleave(n), r.repeat(h.shape[0]),
+                           distance).reshape(-1, n)
+
     def effective_distance(self, distance: Distance) -> Distance:
         return distance if self.uses_distance_flag else Distance.L1
 
@@ -141,6 +160,7 @@ def get_model(name: str) -> Model:
     import kb2e_tpu_torch.models.transe  # noqa: F401
     import kb2e_tpu_torch.models.transh  # noqa: F401
     import kb2e_tpu_torch.models.transr  # noqa: F401
+    import kb2e_tpu_torch.models.ctransr  # noqa: F401
 
     try:
         return _REGISTRY[name.lower()]

@@ -76,6 +76,16 @@ class TransR(base.Model):
         # energy cache, common/evaluation.cpp:194-218).
         return params["entity"] @ params["proj"][rel]
 
+    def _project_all(self, params, e_idx: torch.Tensor, rels: slice) -> torch.Tensor:
+        """[B, R′, k]: the rows ``e_idx`` projected by each matrix of ``rels``."""
+        return torch.einsum("bj,rji->bri", params["entity"][e_idx], params["proj"][rels])
+
+    def relation_scores(self, params, h, t, rels: slice, distance: Distance) -> torch.Tensor:
+        # h and t projected by every W_r′ at once, where the JAX package
+        # gathers W per (pair, r′) row (D18); the same tp − hp − r order.
+        res = self._project_all(params, t, rels) - self._project_all(params, h, rels) - params["relation"][rels]
+        return distances.residual_energy(res, distance)
+
     def batch_update(self, params, batch: base.Batch, cfg: EmbeddingConfig) -> Tuple[base.Params, torch.Tensor]:
         """Chunk-sequential fast update, as ``kb2e_tpu.models.transr.TransR.batch_update``.
 

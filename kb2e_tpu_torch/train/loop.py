@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -56,6 +57,13 @@ def train(
     dev = resolve_device(device)
     if cfg.update_mode not in ("fast", "parity"):
         raise ValueError(f"update_mode={cfg.update_mode!r}; expected 'fast' or 'parity'")
+    if cfg.update_mode == "parity" and not model.has_parity_mode:
+        warnings.warn(
+            f"--update-mode parity has no effect for {model.name}: no "
+            "reference binary exists to be sequentially faithful to, so the "
+            "vectorised update is the defining semantics.",
+            stacklevel=2,
+        )
     generator = torch.Generator(device=dev).manual_seed(cfg.resolved_seed())
     if init_params is None:
         params = model.init_params(generator, triples.n_entities, triples.n_relations, cfg, dev)

@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and handed to both packages.
 """
 
 import ast
+import concurrent.futures
 import dataclasses
 import filecmp
 import pathlib
@@ -26,8 +27,10 @@ from kb2e_tpu_torch.cli import common as port_common
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance, Method
 from kb2e_tpu_torch.convert import params_from_numpy, params_to_numpy
+from kb2e_tpu_torch.data import native as port_native
 from kb2e_tpu_torch.data import synthetic as port_synthetic
 from kb2e_tpu_torch.data import triples as port_triples
+from kb2e_tpu_torch.data import vocab as port_vocab
 from kb2e_tpu_torch.io import text as port_text
 from kb2e_tpu_torch.ops import distances, projections
 
@@ -51,6 +54,67 @@ def test_dataset_loads_alike(tiny_kg_dir):
     pf = port_triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"), filter_with_eval_splits=True)
     for name in ("sorted_h", "sorted_r", "sorted_t"):
         np.testing.assert_array_equal(getattr(pf.train, name), getattr(jf.train, name))
+
+
+def test_native_loader_gives_the_python_loaders_arrays(tiny_kg_dir):
+    # g++ is on this machine: a failed build here is a fault, not a skip.
+    assert port_native.available()
+    e2i = port_vocab.load_id_file(str(pathlib.Path(tiny_kg_dir) / "entity2id.txt"))
+    r2i = port_vocab.load_id_file(str(pathlib.Path(tiny_kg_dir) / "relation2id.txt"))
+    for split in ("train", "valid", "test"):
+        path = str(pathlib.Path(tiny_kg_dir) / f"{split}.txt")
+        for got, want in zip(port_native.load_triple_file(path, e2i, r2i),
+                             port_triples.load_triple_file(path, e2i, r2i)):
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+    native = port_triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"))
+    python = port_triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"), use_native=False)
+    for name in ("heads", "tails", "rels", "sorted_h", "sorted_r", "sorted_t", "bern_pr_tail"):
+        np.testing.assert_array_equal(getattr(native.train, name), getattr(python.train, name), err_msg=name)
+    for split in ("valid", "test"):
+        for a, b in zip(getattr(native, split), getattr(python, split)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_native_loader_skips_unknown_names(tmp_path, capfd):
+    (tmp_path / "entity2id.txt").write_text("a\t0\nb\t1\n")
+    (tmp_path / "relation2id.txt").write_text("likes\t0\n")
+    (tmp_path / "train.txt").write_text("a\tb\tlikes\nzzz\tb\tlikes\nb\ta\tknows\n")
+    h, t, r = port_native.load_triple_file(str(tmp_path / "train.txt"), {"a": 0, "b": 1}, {"likes": 0})
+    assert h.tolist() == [0] and t.tolist() == [1] and r.tolist() == [0]
+    err = capfd.readouterr().err
+    assert "not found in the identity file: zzz" in err and "not found in the identity file: knows" in err
+    (tmp_path / "empty.txt").write_text("")
+    assert [a.shape for a in port_native.load_triple_file(str(tmp_path / "empty.txt"), {}, {})] == [(0,)] * 3
+
+
+def test_native_builds_land_whole_under_a_hashed_name(tmp_path):
+    # Processes that build at the same moment each compile to a file of their
+    # own and move it into place: every caller gets a whole library.
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        paths = list(pool.map(lambda _: port_native.build(build_dir=tmp_path), range(3)))
+    assert len(set(paths)) == 1 and paths[0] == port_native.library_path(build_dir=tmp_path)
+    assert paths[0].name.startswith("libkb2e_io_") and [p.name for p in tmp_path.iterdir()] == [paths[0].name]
+
+
+def test_a_failed_native_build_says_why_once_and_falls_back(tiny_kg_dir, monkeypatch, capsys):
+    def fail(*args, **kwargs):
+        raise OSError("g++: not found")
+
+    monkeypatch.setattr(port_native, "build", fail)
+    port_native._library.cache_clear()
+    try:
+        got = [port_triples.load_dataset(tiny_kg_dir, splits=("train", "test")) for _ in range(2)]
+        assert not port_native.available()
+    finally:
+        port_native._library.cache_clear()
+    err = capsys.readouterr().err
+    assert err.count("kb2e_io: native loader unavailable (g++: not found); using the Python loader") == 1
+    want = port_triples.load_dataset(tiny_kg_dir, splits=("train", "test"), use_native=False)
+    for ds in got:
+        for a, b in zip(ds.test, want.test):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(ds.train.heads, want.train.heads)
 
 
 def test_synthetic_directory_is_byte_identical(tmp_path):

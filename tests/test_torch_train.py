@@ -452,5 +452,5 @@ def test_training_without_cuda_raises_unless_the_cpu_is_asked_for(tiny_kg_dir, t
     argv = ["--datadir", tiny_kg_dir, "--outdir", str(tmp_path), "--size", "4", "--epochs", "1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_transe.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        train_cli.main(argv + ["--model", "ctransr", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        train_cli.main(argv + ["--model", "ptranse", "--device", "cpu"])
