@@ -101,11 +101,30 @@ non-zero exit on any failure:
                 give the Python loader's arrays; the seconds of the triple
                 parse each way, of ``load_dataset`` each way, and of
                 ``read_matrix`` on TransR's ``weights.bern``;
+              * PTransE (no kernel of its own), warm-started from the fast
+                TransE run's files with ADD, 2 hops and 8 paths: the native
+                PCRA store of the train split (seconds, coverage),
+                ``train_ptranse`` for 2 fast epochs (the loss is finite and
+                falls; ``relation_inv.bern`` and the sidecar's extras are
+                written), ``eval_ptranse`` for ``--distance 0`` and ``1``
+                (one rank-count launch per batch, the first 4,096 ranks
+                against the plain version), ``--task relation`` with the
+                test pairs' path evidence (no launch; the store's seconds,
+                the wall, the scoring alone, the peak device memory), and on
+                dyadic tables the ranks with evidence of the first 8 batches
+                equal on the card and on the CPU;
+              * PTransE quality: QUALITY.md's rows on the planted KG
+                (warm-started from its TransE fast run), entity Hits@10 in
+                QUALITY_BANDS_PTRANSE and relation Hits@10 with evidence in
+                QUALITY_BAND_PTRANSE_RELATION; and the mechanism of
+                benchmarks/ptranse_composition.py on compositional_kg: with
+                evidence in MECHANISM_BAND, at least MECHANISM_MIN_GAIN above
+                without;
 5. timing   — per kernel at the main path's shapes: the kernel, the plain
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
-              records count the launches of every eval path (TransE, both
-              TransH flags, TransR); their ``ms`` is the wrapper's time as
+              records count the launches of every eval path (TransE,
+              PTransE, both TransH flags, TransR); their ``ms`` is the wrapper's time as
               the harness calls it, with the bare launch's device time beside
               it (``device_ms``: CUDA events, the profiler as a cross-check),
               the grid, the resident blocks and waves.  The TransE, TransH and TransR updates
@@ -116,7 +135,9 @@ non-zero exit on any failure:
               call by kernel, and the wrapper's id check alone.  Then
               CTransR's fast epoch (the loop's walls, the breakdown on its
               trained tables), its clustered eval, relation prediction and
-              the loader, each line beside the card's name and power limit.
+              the loader, and PTransE's fast epoch (the breakdown on its
+              trained tables and path store), path stores and evals, each
+              line beside the card's name and power limit.
 
 The last lines are the card's ``name, power.limit``, one JSON object with a
 record per kernel, and ``{"ok": true, "device": {...}}``.
@@ -125,6 +146,8 @@ record per kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import multiprocessing as mp
 import os
@@ -207,6 +230,29 @@ SKEWED_KG = (N_ENTITIES, N_RELATIONS, 120_000, 1)
 # Unrounded inputs: sums taken in another order may move an energy across a
 # tie, so a few counts may differ; dyadic inputs must match exactly.
 MAX_QUERY_SHARE_OFF, MAX_COUNT_OFF = 0.001, 2
+
+# PTransE at bench.py's configuration and in QUALITY.md's runs: ADD
+# composition, 2-hop PCRA paths, the 8 most reliable a triple.
+PTRANSE_FLAGS = ["--path-comp", "add", "--max-paths", "8", "--path-length", "2"]
+# QUALITY.md's PTransE rows (QUALITY.md:23 and :54; examples/quality_run.py:
+# 120-141): TransE's flags, warm-started from the planted-KG TransE run;
+# filtered Hits@10 0.435 on the entity task and 0.611 on relation prediction
+# with path evidence, +-0.04.  Its parity mode is the fast update, held to
+# the entity band's low end.
+QUALITY_BANDS_PTRANSE = {"fast": (0.395, 0.475), "parity": (0.395, 1.0)}
+QUALITY_BAND_PTRANSE_RELATION = (0.571, 0.651)
+# PTRANSE_COMP_r05.json (benchmarks/ptranse_composition.py): on
+# compositional_kg(seed=0), k 32, 60 epochs, lr 0.01, 20 batches, bern, L1,
+# seed 11, ADD, path weight 0, stores of 16 paths, relation prediction's
+# filtered Hits@10 was 0.7802 with path evidence and 0.6645 without.  One
+# seed's result moves by more than the band's width (seed 11 gave 0.838 with
+# the evidence on an H100), so the port trains MECHANISM_SEEDS and their mean
+# must land in MECHANISM_BAND with the evidence and gain at least half of
+# that 0.116 from it; the evidence must help at every seed.
+MECHANISM_BAND, MECHANISM_MIN_GAIN = (0.74, 0.82), 0.058
+MECHANISM_SEEDS = (11, 12, 13, 14)
+# Checks of relation evidence on the card against the CPU: the first batches.
+N_RELATION_CHECK_BATCHES = 8
 
 # Peak rates of an H100 SXM at its full 700 W (NVIDIA data sheet): fp32 outside
 # the tensor cores counts an FMA as two operations, and device memory.
@@ -681,8 +727,8 @@ def data_phase(tables, transh, transr, work: str):
     return data_dir, out_dir, transh_dir, transr_dir
 
 
-def main_phase(tables, work: str, data_dir: str, out_dir: str, transh_dir: str, transr_dir: str):
-    results = eval_path(tables, data_dir, out_dir)
+def main_phase(work: str, data_dir: str, out_dir: str, transh_dir: str, transr_dir: str):
+    results = eval_path(data_dir, out_dir)
     results.update(training_paths(work, data_dir))
     results["quality"] = quality_path(work, "transe", {"fast": QUALITY_BAND, "parity": QUALITY_BAND},
                                       "transe_update_l1", "QUALITY.md 0.439")
@@ -702,12 +748,21 @@ def main_phase(tables, work: str, data_dir: str, out_dir: str, transh_dir: str, 
                                               "QUALITY.md 0.512", quality_flags("0.01") + seed)
     results["relation"] = relation_prediction_path(work, data_dir)
     results["loader"] = loader_path(data_dir, transr_dir)
+    results.update(ptranse_paths(work, data_dir))
+    results["ptranse_quality"] = quality_path(work, "ptranse", QUALITY_BANDS_PTRANSE, None, "QUALITY.md 0.435",
+                                              QUALITY_FLAGS + seed + PTRANSE_FLAGS)
+    results["ptranse_quality_relation"] = ptranse_quality_relation(work)
+    results["mechanism"] = mechanism_path()
     return results
 
 
-def eval_path(tables, data_dir: str, out_dir: str):
+def eval_path(data_dir: str, out_dir: str, model_name: str = "transe"):
+    """``eval_<model>`` of a one-group model (TransE, PTransE) on ``out_dir``'s
+    files for ``--distance 0`` and ``1``: one rank-count launch per batch;
+    the ranks again by ``rank_all`` (ranking alone), and the first N_CHECK
+    queries' raw ranks against the plain version on the card."""
     from kb2e_tpu_torch import EmbeddingConfig, get_model
-    from kb2e_tpu_torch.cli import eval_transe
+    from kb2e_tpu_torch.cli import eval as eval_cli
     from kb2e_tpu_torch.constants import Distance, Method
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
@@ -719,7 +774,7 @@ def eval_path(tables, data_dir: str, out_dir: str):
     check((dataset.train.num_triples, dataset.valid[0].shape[0], n_test) == (N_TRAIN, N_VALID, N_TEST),
           "split sizes differ from FB15k's")
     n_batches = -(-2 * n_test // EVAL_BATCH)
-    model = get_model("transe")
+    model = get_model(model_name)
     # The tables as the CLI sees them: written at %.6f and read back.
     params = {k: torch.from_numpy(v.astype(np.float32)).cuda()
               for k, v in text.read_embeddings(out_dir, Method.BERN, N_ENTITIES, N_RELATIONS, K).items()}
@@ -731,7 +786,7 @@ def eval_path(tables, data_dir: str, out_dir: str):
         reset_all_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = eval_transe.main(argv)
+        metrics = eval_cli.main(argv, model_name=model_name)
         wall = time.perf_counter() - t0
         launches = all_launch_counts()
         check(launches == {name: n_batches}, f"{name}: launches {launches}, expected {{{name!r}: {n_batches}}}")
@@ -739,7 +794,7 @@ def eval_path(tables, data_dir: str, out_dir: str):
         for key in ("raw_mean_rank", "filtered_mean_rank", "raw_hits10", "filtered_hits10"):
             check(np.isfinite(metrics[key]), f"{key} is not finite")
         check(1 <= metrics["filtered_mean_rank"] <= metrics["raw_mean_rank"] <= N_ENTITIES, "mean ranks out of order")
-        print(f"[main] eval_transe --distance {int(distance)}: {2 * n_test} queries, {launches[name]} launches "
+        print(f"[main] eval_{model_name} --distance {int(distance)}: {2 * n_test} queries, {launches[name]} launches "
               f"of {name}, eval wall {wall:.2f} s (loading included); raw MR {metrics['raw_mean_rank']:.6f} "
               f"H@10 {metrics['raw_hits10']:.6f}, filtered MR {metrics['filtered_mean_rank']:.6f} "
               f"H@10 {metrics['filtered_hits10']:.6f}", flush=True)
@@ -751,7 +806,7 @@ def eval_path(tables, data_dir: str, out_dir: str):
         raw, filt, sizes = harness.rank_all(model, params, dataset, cfg, device="cuda")
         rank_wall = time.perf_counter() - t0
         check(harness.metrics_from_ranks(raw, filt, sizes) == metrics, "a second run of the ranks gives other metrics")
-        print(f"[main] ranking alone (rank_all on loaded data and tables, filter index and feed "
+        print(f"[main] {model_name} ranking alone (rank_all on loaded data and tables, filter index and feed "
               f"included): {rank_wall:.3f} s", flush=True)
         th, tt, tr = (torch.from_numpy(a[: N_CHECK // 2].astype(np.int64)).cuda() for a in dataset.test)
         anchor = torch.stack([tt, th], 1).reshape(-1)
@@ -767,8 +822,9 @@ def eval_path(tables, data_dir: str, out_dir: str):
             for s in range(0, N_CHECK, EVAL_BATCH)
         ])
         n_off, max_off = compare(torch.from_numpy(raw[:N_CHECK]).cuda(), plain, False,
-                                 f"main path {distance.name}, first {N_CHECK} queries")
-        print(f"[main] first {N_CHECK} raw ranks vs the plain version: {n_off} differ (max {max_off})", flush=True)
+                                 f"eval_{model_name} {distance.name}, first {N_CHECK} queries")
+        print(f"[main] {model_name} {distance.name}: first {N_CHECK} raw ranks vs the plain version: {n_off} differ "
+              f"(max {max_off})", flush=True)
         results[distance] = dict(launches=launches[name], max_off=max_off, wall=wall, rank_wall=rank_wall)
     return results
 
@@ -1043,7 +1099,8 @@ def read_params(model_name: str, out_dir: str):
     model = get_model(model_name)
     host = text.read_embeddings(out_dir, Method.BERN, N_ENTITIES, N_RELATIONS, K,
                                 weights_shape=model.weights_shape(N_RELATIONS, K))
-    names = {"entity": "entity", "relation": "relation", **{key: name for name, key in model.file_extras.items()}}
+    names = {"entity": "entity", "relation": "relation",
+             **{key: name for name, key in model.file_extras.items() if name in host}}
     if model.weights_key:
         names[model.weights_key] = "weights"
     return {key: torch.from_numpy(host[name].astype(np.float32)).cuda() for key, name in names.items()}
@@ -1261,6 +1318,229 @@ def relation_prediction_path(work: str, data_dir: str):
               flush=True)
         results[model_name] = dict(wall=wall, score_s=score_s, peak=peak, metrics=m)
     return results
+
+
+def timed_path_stores(fn):
+    """fn() with every ``data/paths.py::build_path_store`` call timed and the
+    native extractor's calls counted; returns fn's result, [(seconds,
+    store)] and the native calls."""
+    from kb2e_tpu_torch.data import native_paths, paths
+
+    build, extract = paths.build_path_store, native_paths.extract_path_arrays
+    stores, native_calls = [], []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        store = build(*args, **kwargs)
+        stores.append((time.perf_counter() - t0, store))
+        return store
+
+    def counted(*args, **kwargs):
+        native_calls.append(1)
+        return extract(*args, **kwargs)
+
+    paths.build_path_store, native_paths.extract_path_arrays = timed, counted
+    try:
+        return fn(), stores, len(native_calls)
+    finally:
+        paths.build_path_store, native_paths.extract_path_arrays = build, extract
+
+
+def describe_store(store, seconds: float) -> str:
+    return (f"{store.rels.shape[0]} rows of {store.max_paths} paths of <= {store.max_len} hops in {seconds:.3f} s, "
+            f"coverage {store.coverage():.4f}, {(store.rels.nbytes + store.conf.nbytes) / 2**20:.1f} MiB")
+
+
+def ptranse_paths(work: str, data_dir: str):
+    """bench.py's configuration through ``train_ptranse`` (ADD, 2 hops, 8
+    paths), warm-started from the fast TransE run's files: the native PCRA
+    store of the train split (its seconds and coverage), 2 fast epochs (no
+    kernel; the loss is finite and falls; ``relation_inv.bern`` and the
+    sidecar's extras are written); ``eval_ptranse`` for ``--distance 0`` and
+    ``1`` through the rank count (``eval_path``); ``eval_ptranse --task
+    relation`` with the test pairs' path evidence (the test store's seconds
+    and coverage, the wall, the scoring alone with and without the evidence,
+    the peak device memory); and on dyadic tables the ranks with evidence of
+    the first N_RELATION_CHECK_BATCHES batches equal on the card and on the
+    CPU."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.cli import eval as eval_cli
+    from kb2e_tpu_torch.data import paths, triples
+    from kb2e_tpu_torch.eval import harness
+
+    seed = ["--seeddatadir", os.path.join(work, "trained_fast"), "--seedmethod", "1"]
+    out = os.path.join(work, "ptranse_fast")
+    (fast, _), stores, n_native = timed_path_stores(lambda: train_run(
+        ["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2", *seed, *PTRANSE_FLAGS],
+        os.path.join(work, "ptranse_fast.jsonl"), {},
+        "train_ptranse fast, 2 epochs (warm start: train_transe's fast files)", model="ptranse"))
+    check(len(stores) == 1 and n_native == 1, f"{len(stores)} path stores, {n_native} native extractions")
+    store_s, store = stores[0]
+    check(store.rels.shape == (N_TRAIN, 8, 2), f"path store of shape {store.rels.shape}")
+    print(f"[main] PTransE train path store (native PCRA): {describe_store(store, store_s)}", flush=True)
+    check(fast[1]["loss"] < fast[0]["loss"], "the PTransE fast loss does not fall")
+    for name in ("entity2vec.bern", "relation2vec.bern", "relation_inv.bern", "embedding_meta.json"):
+        check(os.path.exists(os.path.join(out, name)), f"{name} not written")
+    with open(os.path.join(out, "embedding_meta.json"), encoding="utf-8") as f:
+        extras = json.load(f)["extras"]
+    check(extras == {"relation_inv": [N_RELATIONS, K]}, f"sidecar extras {extras}")
+    evals = eval_path(data_dir, out, "ptranse")
+
+    model = get_model("ptranse")
+    argv = ["--datadir", data_dir, "--outdir", out, "--size", str(K), "--method", "1", "--seed", str(SEED),
+            "--task", "relation", *PTRANSE_FLAGS]
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m, test_stores, n_native = timed_path_stores(lambda: eval_cli.main(argv, model_name="ptranse"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launch_counts()
+    check(launches == {}, f"eval_ptranse --task relation: launches {launches}, expected none")
+    check(len(test_stores) == 1 and n_native == 1, f"{len(test_stores)} test stores, {n_native} native extractions")
+    test_s, test_store = test_stores[0]
+    check(m["num_corruptions"] == N_TEST and all(np.isfinite(v) for v in m.values()), f"relation metrics {m}")
+    check(1 <= m["filtered_mean_rank"] <= m["raw_mean_rank"] <= N_RELATIONS, "relation mean ranks out of order")
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
+    params = read_params("ptranse", out)
+    cfg = EmbeddingConfig(embedding_size=K)
+    score = {}
+    for evidence in (test_store, None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ranks = harness.relation_ranks(model, params, dataset, cfg, path_store=evidence, device="cuda")
+        score[evidence is not None] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(), ranks)
+    check(harness.metrics_from_ranks(*score[True][2]) == m, "a second run of the relation ranks with evidence differs")
+    plain = harness.metrics_from_ranks(*score[False][2])
+    print(f"[main] eval_ptranse --task relation with path evidence: {N_TEST} triples x {N_RELATIONS} relations in "
+          f"{len(score[True][2][2])} batches, launches {launches}; test store over the train graph: "
+          f"{describe_store(test_store, test_s)}; eval wall {wall:.2f} s (loading and the store included), peak "
+          f"device memory {peak / 2**20:.1f} MiB; scoring alone {score[True][0]:.3f} s with the evidence (peak "
+          f"{score[True][1] / 2**20:.1f} MiB), {score[False][0]:.3f} s without (peak {score[False][1] / 2**20:.1f} "
+          f"MiB); raw MR {m['raw_mean_rank']:.6f} Hits@1 {m['raw_hits1']:.6f}, filtered MR "
+          f"{m['filtered_mean_rank']:.6f} Hits@1 {m['filtered_hits1']:.6f} Hits@10 {m['filtered_hits10']:.6f} "
+          f"(without the evidence: filtered MR {plain['filtered_mean_rank']:.6f} Hits@10 "
+          f"{plain['filtered_hits10']:.6f})", flush=True)
+    relation_evidence_check(model, dataset, test_store)
+    return dict(ptranse_fast=fast, ptranse_store=(store_s, store), ptranse_eval=evals,
+                ptranse_relation=dict(wall=wall, peak=peak, test_s=test_s, test_store=test_store,
+                                      score_s=score[True][0], score_peak=score[True][1], plain_s=score[False][0],
+                                      metrics=m),
+                ptranse_params=params)
+
+
+def relation_evidence_check(model, dataset, test_store):
+    """Seeded dyadic PTransE tables at FB15k's width, and the test store's
+    confidences rounded to multiples of 1/64: every energy, composition and
+    evidence term is exact in float32.  The ranks with evidence of the first
+    N_RELATION_CHECK_BATCHES batches of test triples are equal on the card
+    (batches of 256) and on the CPU (batches of 32), raw and filtered, for
+    ADD and MUL."""
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.data import paths
+    from kb2e_tpu_torch.eval import harness
+
+    rng = np.random.default_rng(SEED + 3)
+    host = {name: torch.from_numpy(np.clip(np.round(rng.normal(size=(n, K)) * 2) / 8, -1, 1).astype(np.float32))
+            for name, n in (("entity", N_ENTITIES), ("relation", N_RELATIONS), ("relation_inv", N_RELATIONS))}
+    n = N_RELATION_CHECK_BATCHES * EVAL_BATCH
+    subset = tuple(a[:n] for a in dataset.test)
+    store = paths.PathStore(rels=test_store.rels[:n], conf=(np.round(test_store.conf[:n] * 64) / 64).astype(np.float32))
+    for comp in ("add", "mul"):
+        cfg = EmbeddingConfig(embedding_size=K, path_composition=comp)
+        t0 = time.perf_counter()
+        card = harness.relation_ranks(model, {k: v.cuda() for k, v in host.items()}, dataset, cfg,
+                                      test_triples=subset, path_store=store, device="cuda")[:2]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = harness.relation_ranks(model, host, dataset, cfg.replace(eval_batch_size=32), test_triples=subset,
+                                     path_store=store, device="cpu")[:2]
+        cpu_s = time.perf_counter() - t0
+        n_off = int(sum((a != b).sum() for a, b in zip(card, cpu)))
+        check(n_off == 0, f"relation ranks with evidence ({comp}): {n_off} of {2 * n} differ between the card and "
+                          "the CPU on dyadic tables")
+        print(f"[main] PTransE relation ranks with path evidence ({comp}) on dyadic tables: the first {n} test "
+              f"triples, raw and filtered, equal on the card ({card_s:.2f} s) and on the CPU ({cpu_s:.2f} s)",
+              flush=True)
+
+
+def ptranse_quality_relation(work: str):
+    """QUALITY.md's PTransE relation-prediction row: ``eval_ptranse --task
+    relation`` with path evidence on the planted-KG PTransE fast run's files;
+    filtered Hits@10 must land in QUALITY_BAND_PTRANSE_RELATION."""
+    kg, out = os.path.join(work, "planted"), os.path.join(work, "planted_ptranse_fast")
+    metrics = eval_run(["--datadir", kg, "--outdir", out, "--size", str(QUALITY_SIZE), "--method", "1", "--task",
+                        "relation", *PTRANSE_FLAGS], {}, "planted KG, ptranse fast: eval_ptranse --task relation",
+                       model="ptranse")
+    hits = metrics["filtered_hits10"]
+    check(QUALITY_BAND_PTRANSE_RELATION[0] <= hits <= QUALITY_BAND_PTRANSE_RELATION[1],
+          f"planted KG, ptranse relation prediction: filtered Hits@10 {hits} outside {QUALITY_BAND_PTRANSE_RELATION}")
+    print(f"[main] planted KG ptranse relation prediction with path evidence: filtered Hits@10 {hits:.6f}, filtered "
+          f"MR {metrics['filtered_mean_rank']:.6f} (band {QUALITY_BAND_PTRANSE_RELATION}; QUALITY.md 0.611)",
+          flush=True)
+    return hits
+
+
+def mechanism_path():
+    """benchmarks/ptranse_composition.py's evidence-only ADD cell on the card,
+    once for each of MECHANISM_SEEDS: ``compositional_kg(seed=0)``, its train
+    and test-pair stores of 16 paths, PTransE trained with path weight 0 (k
+    32, 60 epochs, lr 0.01, 20 batches, bern, L1; no kernel), then relation
+    prediction without and with the path evidence.  The mean Hits@10 with it
+    must land in MECHANISM_BAND, the mean gain be at least
+    MECHANISM_MIN_GAIN, and every seed gain."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance, Method
+    from kb2e_tpu_torch.data import paths, synthetic, triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.train import loop
+
+    t0 = time.perf_counter()
+    kg = synthetic.compositional_kg(seed=0)
+    th, tt, tr = kg.train
+    ts = triples.TripleSet.from_arrays(th, tt, tr, n_entities=kg.n_entities, n_relations=kg.n_relations)
+    ds = triples.Dataset(entity2id={str(i): i for i in range(kg.n_entities)},
+                         relation2id={str(i): i for i in range(kg.n_relations)}, train=ts, valid=kg.valid,
+                         test=kg.test)
+    kw = dict(max_paths=16, use_native="auto", n_entities=kg.n_entities)
+    train_store = paths.build_path_store(th, tt, tr, kg.n_relations, **kw)
+    eval_store = paths.build_path_store(th, tt, tr, kg.n_relations, query_pairs=(kg.test[0], kg.test[1]), **kw)
+    print(f"[main] PTransE mechanism: compositional_kg(seed=0), {th.shape[0]} train / {kg.test[0].shape[0]} test "
+          f"triples, stores of 16 paths with coverage {train_store.coverage():.3f} / {eval_store.coverage():.3f}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = []
+    for seed in MECHANISM_SEEDS:
+        cfg = EmbeddingConfig(embedding_size=32, learning_rate=0.01, margin=1.0, method=Method.BERN, num_batches=20,
+                              max_epochs=60, distance=Distance.L1, seed=seed, path_composition="add", path_weight=0.0)
+        records = []
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the loop's 60 epoch lines
+            params = loop.train(get_model("ptranse"), cfg, ts, path_store=train_store, metrics_fn=records.append,
+                                device="cuda")
+        train_s = time.perf_counter() - t0
+        check(all_launch_counts() == {}, f"PTransE training launched {all_launch_counts()}")
+        check(all(np.isfinite(r["loss"]) for r in records) and records[-1]["loss"] < records[0]["loss"],
+              f"the mechanism run's loss does not fall (seed {seed})")
+        hits = [harness.evaluate_relation_prediction(get_model("ptranse"), params, ds, cfg, path_store=evidence,
+                                                     device="cuda")["filtered_hits10"]
+                for evidence in (None, eval_store)]
+        runs.append(hits)
+        print(f"[main] PTransE mechanism, seed {seed} (path weight 0, 60 epochs in {train_s:.1f} s): relation "
+              f"prediction filtered Hits@10 {hits[0]:.6f} without the path evidence, {hits[1]:.6f} with it, gain "
+              f"{hits[1] - hits[0]:.6f}", flush=True)
+    without, with_evidence = np.mean(runs, axis=0)
+    gain = with_evidence - without
+    print(f"[main] PTransE mechanism, mean of seeds {MECHANISM_SEEDS}: filtered Hits@10 {without:.6f} without the "
+          f"path evidence, {with_evidence:.6f} with it, gain {gain:.6f} (band {MECHANISM_BAND}, gain at least "
+          f"{MECHANISM_MIN_GAIN}; PTRANSE_COMP_r05.json, seed 11: 0.6645 and 0.7802)", flush=True)
+    check(MECHANISM_BAND[0] <= with_evidence <= MECHANISM_BAND[1],
+          f"mean Hits@10 with evidence {with_evidence} outside {MECHANISM_BAND}")
+    check(gain >= MECHANISM_MIN_GAIN, f"the path evidence gains {gain} on the mean, below {MECHANISM_MIN_GAIN}")
+    check(all(b > a for a, b in runs), f"the path evidence does not help at every seed: {runs}")
+    return dict(runs=runs, without=without, with_evidence=with_evidence)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1811,7 +2091,7 @@ def rank_count_timing(tables, ctx, results):
         else:
             # Every eval path's launches of this kernel: TransE's, then the
             # projecting models' for each flag that ranks by this distance.
-            paths = [("eval_transe", results[distance])] + [
+            paths = [("eval_transe", results[distance]), ("eval_ptranse", results["ptranse_eval"][distance])] + [
                 (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
                 for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name]
             record["launches"] = sum(ev["launches"] for _, ev in paths)
@@ -1948,6 +2228,35 @@ def ctransr_timing(ctx, results):
           f"{ld['entity_s']:.3f} s", flush=True)
 
 
+def ptranse_timing(ctx, results):
+    """PTransE's fast epoch at bench.py's configuration (the loop's walls;
+    the breakdown on its trained tables and the train split's path store),
+    its path stores, entity eval through the rank count and relation
+    prediction with path evidence, beside the card's name and power limit."""
+    import dataclasses
+
+    card = card_line()
+    fast = results["ptranse_fast"]
+    store_s, store = results["ptranse_store"]
+    print(f"[timing] {card}: train_ptranse fast (ADD, 2 hops, 8 paths) at bench.py's configuration: epoch walls "
+          + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
+          + f"; train path store {describe_store(store, store_s)}", flush=True)
+    data = ctx["train_data"]
+    path_data = dataclasses.replace(data, paths=torch.from_numpy(store.rels).cuda(),
+                                    path_conf=torch.from_numpy(store.conf).cuda())
+    # The profiler on the first 25 of the fast epoch's 100 updates: all of
+    # them took 27 s of profiling.
+    epoch_breakdown({**ctx, "train_data": path_data}, "ptranse", results["ptranse_params"], parity=False,
+                    profile_window=25)
+    rel = results["ptranse_relation"]
+    print(f"[timing] {card}: eval_ptranse "
+          + "; ".join(f"--distance {int(d)}: eval {ev['wall']:.2f} s, ranking alone {ev['rank_wall']:.3f} s over "
+                      f"{ev['launches']} launches" for d, ev in results["ptranse_eval"].items())
+          + f"; --task relation with path evidence: eval {rel['wall']:.2f} s (the test store "
+          f"{rel['test_s']:.3f} s), scoring alone {rel['score_s']:.3f} s (without the evidence {rel['plain_s']:.3f} "
+          f"s), peak {rel['peak'] / 2**20:.1f} MiB (scoring alone {rel['score_peak'] / 2**20:.1f} MiB)", flush=True)
+
+
 def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
 
@@ -1980,6 +2289,8 @@ def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
     ctransr_timing(ctx, results)
     took("the CTransR timing")
+    ptranse_timing(ctx, results)
+    took("the PTransE timing")
     return records
 
 
@@ -2013,7 +2324,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:
         data_dir, out_dir, transh_dir, transr_dir = phase("data", data_phase, tables, transh, transr, work)
         ctx = phase("kernels", kernels_phase, tables, transh, transr, data_dir, work)
-        results = phase("main", main_phase, tables, work, data_dir, out_dir, transh_dir, transr_dir)
+        results = phase("main", main_phase, work, data_dir, out_dir, transh_dir, transr_dir)
         records = phase("timing", timing_phase, tables, ctx, results)
 
     print(card)

@@ -6,7 +6,7 @@ numpy only, never ``jax`` and nothing of ``kb2e_tpu``.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (CLI: ``--device cpu``);
 the TPU's Pallas kernels become hand-written CUDA kernels under ``csrc/``.
 
-It trains and evaluates TransE, TransH, TransR and CTransR.
+It trains and evaluates TransE, TransH, TransR, CTransR and PTransE.
 """
 
 __version__ = "0.1.0"

@@ -18,16 +18,6 @@ from kb2e_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 MODELS = ("transe", "transh", "transr", "ctransr", "ptranse")
-# Where each model not ported yet stands in ROADMAP.md's Queue 1.
-NOT_PORTED = {"ptranse": "Queue 1 item 5 (PTransE)"}
-
-
-def check_ported(model_name: str) -> None:
-    """Raise ``NotImplementedError`` for a model the port does not run yet."""
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported to kb2e_tpu_torch yet: ROADMAP.md {NOT_PORTED[model_name]}"
-        )
 
 
 def build_parser(prog: str, description: str) -> argparse.ArgumentParser:
@@ -55,7 +45,7 @@ def build_parser(prog: str, description: str) -> argparse.ArgumentParser:
     add("distance", dest="distance", default=str(int(C.DEFAULT_DISTANCE)),
         help="0=L1, 1=L2 [0]")
     add("seeddatadir", dest="seed_data_dir", default=C.DEFAULT_SEED_DATA_DIR,
-        help="TransR/CTransR warm-start directory [.]")
+        help="TransR/CTransR/PTransE warm-start directory [.]")
     add("seedmethod", dest="seed_method", default=str(int(C.DEFAULT_SEED_METHOD)),
         help="warm-start files' method tag [0 (unif)]")
     add("seed", dest="seed", type=int, default=None, help="PRNG seed [now]")

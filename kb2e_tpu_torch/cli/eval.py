@@ -6,8 +6,9 @@ all entities, print raw + filtered MeanRank and Hits@10 in the reference's
 exact format (``common/evaluation.cpp:247-250``).  ``--task relation`` ranks
 each test triple's relation among all R instead and prints the two
 ``Relation Raw/Filtered`` lines.  Runs on ``--device`` (default ``cuda``).
-The port evaluates TransE, TransH, TransR and CTransR in both tasks; PTransE
-raises until its slice lands.
+The port evaluates TransE, TransH, TransR, CTransR and PTransE in both tasks.
+PTransE's relation task adds path evidence: the PCRA store of the test pairs
+over the train graph (``data/paths.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from kb2e_tpu_torch import constants as C
 from kb2e_tpu_torch.cli import common
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.convert import params_from_numpy
+from kb2e_tpu_torch.data import paths as paths_lib
 from kb2e_tpu_torch.data import triples as data_lib
 from kb2e_tpu_torch.eval import harness
 from kb2e_tpu_torch.io import text as text_io
@@ -27,7 +29,6 @@ from kb2e_tpu_torch.utils.device import resolve_device
 
 
 def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device="cuda", task: str = "entity") -> dict:
-    common.check_ported(model_name)
     dev = resolve_device(device)
     model = model_base.get_model(model_name)
     print(cfg.describe())
@@ -56,11 +57,22 @@ def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device
     arrays = {name: host[name] for name in ("entity", "relation")}
     if model.weights_key is not None:
         arrays[model.weights_key] = host["weights"]
-    # CTransR's relation_clusters / cluster_centers, from the sidecar's extras.
-    arrays.update({key: host[name] for name, key in model.file_extras.items()})
+    # CTransR's relation_clusters / cluster_centers, PTransE's relation_inv
+    # (and comp_w for RNN), from the sidecar's extras.
+    arrays.update({key: host[name] for name, key in model.file_extras.items() if name in host})
     params = params_from_numpy({name: a.astype("float32") for name, a in arrays.items()}, dev)
     if task == "relation":
-        metrics = harness.evaluate_relation_prediction(model, params, dataset, cfg, verbose=verbose, device=dev)
+        path_store = None
+        if model.uses_paths:
+            train = dataset.train
+            path_store = paths_lib.build_path_store(
+                train.heads, train.tails, train.rels, train.n_relations,
+                max_len=cfg.path_length, min_conf=cfg.path_min_conf,
+                max_paths=cfg.max_paths, max_branch=cfg.path_max_branch,
+                n_entities=dataset.n_entities, query_pairs=(dataset.test[0], dataset.test[1]),
+            )
+        metrics = harness.evaluate_relation_prediction(model, params, dataset, cfg, path_store=path_store,
+                                                       verbose=verbose, device=dev)
         print(f"Relation Raw      -- Rank: {metrics['raw_mean_rank']:f}, Hits@1: {metrics['raw_hits1']:f}")
         print(f"Relation Filtered -- Rank: {metrics['filtered_mean_rank']:f}, Hits@1: {metrics['filtered_hits1']:f}")
         return metrics

@@ -4,14 +4,16 @@
 is the analogue of the reference's ``trainTransE`` main
 (``transe/bin/trainTransE.cpp:9-20``): parse args, echo options, train,
 write reference-format embedding files.  Runs on ``--device`` (default
-``cuda``).  ``--model`` keeps the JAX package's choices; the port trains
-TransE, TransH, TransR and CTransR, and PTransE raises until its slice lands.
+``cuda``).  ``--model`` takes the JAX package's choices: TransE, TransH,
+TransR, CTransR and PTransE.  PTransE first builds the PCRA path store of the
+train split (``data/paths.py``) and prints the JAX package's coverage line.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import torch
 
@@ -19,6 +21,7 @@ from kb2e_tpu_torch import constants as C
 from kb2e_tpu_torch.cli import common
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.convert import params_to_numpy
+from kb2e_tpu_torch.data import paths as paths_lib
 from kb2e_tpu_torch.data import triples as data_lib
 from kb2e_tpu_torch.io import text as text_io
 from kb2e_tpu_torch.models import base as model_base
@@ -40,7 +43,6 @@ def run_training(
     device="cuda",
 ):
     """Train ``model_name`` and write its embedding files; returns the params."""
-    common.check_ported(model_name)
     dev = resolve_device(device)
     model = model_base.get_model(model_name)
     print(cfg.describe())
@@ -54,6 +56,20 @@ def run_training(
     print(f"Number of Entities: {ts.n_entities}")
 
     init_params = _maybe_warm_start(model, cfg, ts, dev) if model.has_warm_start else None
+
+    path_store = None
+    if model.uses_paths:
+        t0 = time.perf_counter()
+        path_store = paths_lib.build_path_store(
+            ts.heads, ts.tails, ts.rels, ts.n_relations,
+            max_len=cfg.path_length, min_conf=cfg.path_min_conf,
+            max_paths=cfg.max_paths, max_branch=cfg.path_max_branch,
+        )
+        print(
+            f"PCRA paths: {path_store.coverage() * 100:.1f}% of triples have "
+            f"≥1 path (≤{cfg.path_length} hops, top {cfg.max_paths}; "
+            f"{time.perf_counter() - t0:.1f}s)"
+        )
 
     logger = log_lib.jsonl_logger(metrics_jsonl) if metrics_jsonl else None
     tb_sink = log_lib.TensorBoardSink(tensorboard_dir) if tensorboard_dir else None
@@ -70,6 +86,7 @@ def run_training(
             resume=resume,
             eval_every=eval_every,
             eval_fn=_make_valid_eval(model, cfg, dataset, dev) if eval_every else None,
+            path_store=path_store,
             device=dev,
         )
     finally:
@@ -82,13 +99,14 @@ def run_training(
     text_io.write_embeddings(
         cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
         weights=host[model.weights_key] if model.weights_key else None, model_name=model_name,
-        extras={name: host[key] for name, key in model.file_extras.items()} or None,
+        extras={name: host[key] for name, key in model.file_extras.items() if key in host} or None,
     )
     return params
 
 
 def _maybe_warm_start(model, cfg: EmbeddingConfig, ts, device):
-    """The TransE warm start (TransR's, transr/trainer.cpp:88-113), as
+    """The TransE warm start (TransR's, transr/trainer.cpp:88-113; CTransR
+    and PTransE take the same seed files), as
     ``kb2e_tpu/cli/train.py::_maybe_warm_start``.
 
     The initial tables come from a generator seeded with

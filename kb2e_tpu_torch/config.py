@@ -4,7 +4,7 @@
 (``common/args.h:9-28``, defaults at ``common/args.cpp:19-31``) and carries
 every extension field of ``kb2e_tpu.config.EmbeddingConfig`` with the same
 name and default, so the two packages parse the same flags.  Fields whose
-code path is not ported yet (training, mesh, PTransE) are carried unread.
+code path is not ported yet (the mesh axes) are carried unread.
 """
 
 from __future__ import annotations

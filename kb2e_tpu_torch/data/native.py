@@ -36,16 +36,17 @@ BUILD_DIR = ROOT / "build" / "native"
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 
-def library_path(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
-    """Where the build of ``source`` with ``FLAGS`` lives."""
+def library_path(source: Path = SOURCE, build_dir: Path = BUILD_DIR, stem: str = "libkb2e_io") -> Path:
+    """Where the build of ``source`` with ``FLAGS`` lives: ``<stem>_<hash>.so``."""
     digest = hashlib.sha256(source.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return build_dir / f"libkb2e_io_{digest}.so"
+    return build_dir / f"{stem}_{digest}.so"
 
 
-def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
+def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR, stem: str = "libkb2e_io") -> Path:
     """Compile ``source`` unless it is built already; returns the library.
-    Raises ``OSError`` (no compiler, no source) or ``RuntimeError`` (g++ failed)."""
-    so = library_path(source, build_dir)
+    Raises ``OSError`` (no compiler, no source) or ``RuntimeError`` (g++ failed).
+    ``data/native_paths.py`` builds ``native/path_extract.cpp`` through it."""
+    so = library_path(source, build_dir, stem)
     if so.exists():
         return so
     build_dir.mkdir(parents=True, exist_ok=True)

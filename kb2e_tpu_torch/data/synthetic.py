@@ -7,15 +7,16 @@ metrics), :func:`skewed_kg` adds FB15k's skew (Zipf-popular entities and
 relations, a mix of 1-1, 1-N, N-1 and N-N relations), and
 :func:`write_kg_dir` writes them as a reference-layout
 directory (entity2id.txt / relation2id.txt / train|valid|test.txt,
-common/constants.h:19-23).  Same seed, same bytes as
-``kb2e_tpu.data.synthetic``.  The compositional generator comes with the
-slice that needs it.
+common/constants.h:19-23).  :func:`compositional_kg` plants relation
+compositions with 2-hop witnesses and a controlled split, the graph on which
+PTransE's path evidence has signal.  Same seed, same bytes as
+``kb2e_tpu.data.synthetic``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
@@ -175,6 +176,139 @@ def skewed_kg(
     r = np.concatenate(rs).astype(np.int32)
     perm = rng.permutation(h.shape[0])
     return _dedup(h[perm], t[perm], r[perm])
+
+
+class CompositionalKG(NamedTuple):
+    """A KG with planted relation compositions and a CONTROLLED split.
+
+    ``train``/``valid``/``test``: (h, t, r) triple arrays.  All base-relation
+    edges live in train; composed-relation triples are mostly held out so
+    their direct embeddings are under-trained while their 2-hop path
+    witnesses stay in the train graph — the regime where PTransE's path
+    evidence has signal to carry (Lin et al. EMNLP'15 §1; reference
+    README.md:26-29 reports the resulting FB15k gains but the fork ships no
+    code, survey §0.1).
+    ``comp_pairs``: int32 [C, 2] — composed relation ``n_base + i`` is
+    planted as ``comp_pairs[i, 0] ∘ comp_pairs[i, 1]``.
+    """
+
+    train: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    valid: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    test: Tuple[np.ndarray, np.ndarray, np.ndarray]
+    n_entities: int
+    n_base_relations: int
+    n_composed: int
+    comp_pairs: np.ndarray
+
+    @property
+    def n_relations(self) -> int:
+        return self.n_base_relations + self.n_composed
+
+
+def compositional_kg(
+    n_entities: int = 2000,
+    n_base_relations: int = 12,
+    n_composed: int = 8,
+    n_chains: int = 8000,
+    n_extra_base: int = 8000,
+    seed: int = 0,
+    latent_dim: int = 16,
+    neighbourhood: int = 4,
+    direct_frac: float = 0.10,
+    valid_frac: float = 0.10,
+) -> CompositionalKG:
+    """Plant relation compositions r_c ≡ r_a ∘ r_b WITH entity support.
+
+    Construction: entities get latent points (planted-TransE style); each
+    composed relation ``c`` picks a base pair (a, b) and its latent offset
+    is z_a + z_b.  Every composed triple is emitted as a CHAIN — three
+    triples (h, a, m), (m, b, t), (h, c, t) with m drawn near z_h + z_a and
+    t near z_m + z_b — so each composed fact has an explicit 2-hop witness
+    (h →a m →b t) in the train graph by construction.  ``n_extra_base``
+    additional plain base edges act as path noise.
+
+    Split: ALL base edges → train; composed triples → ``direct_frac`` into
+    train (the under-trained direct evidence), the rest split valid/test.
+    Statistics are pinned in kb2e_tpu's tests/test_data.py; same seed, same
+    arrays as ``kb2e_tpu.data.synthetic.compositional_kg``.
+    """
+    rng = np.random.default_rng(seed)
+    z_e = rng.normal(size=(n_entities, latent_dim))
+    z_e /= np.linalg.norm(z_e, axis=1, keepdims=True)
+    z_r = 0.5 * rng.normal(size=(n_base_relations, latent_dim)) / np.sqrt(latent_dim)
+
+    # Composed pairs: distinct (a, b) base pairs, a != b.
+    pairs = set()
+    while len(pairs) < n_composed:
+        a, b = rng.integers(0, n_base_relations, 2)
+        if a != b:
+            pairs.add((int(a), int(b)))
+    comp_pairs = np.asarray(sorted(pairs), dtype=np.int32)
+
+    def nearest(target: np.ndarray) -> np.ndarray:
+        """Planted tail draw: one of the ``neighbourhood`` nearest entities."""
+        t = np.empty(target.shape[0], dtype=np.int64)
+        chunk = 4096
+        for s in range(0, target.shape[0], chunk):
+            d = np.linalg.norm(
+                target[s : s + chunk, None, :] - z_e[None, :, :], axis=-1
+            )
+            nn = np.argpartition(d, neighbourhood, axis=1)[:, :neighbourhood]
+            pick = rng.integers(0, neighbourhood, nn.shape[0])
+            t[s : s + chunk] = nn[np.arange(nn.shape[0]), pick]
+        return t
+
+    # Chains: (h, a, m), (m, b, t), (h, c, t).
+    ci = rng.integers(0, n_composed, n_chains)
+    a, b = comp_pairs[ci, 0], comp_pairs[ci, 1]
+    h = rng.integers(0, n_entities, n_chains)
+    m = nearest(z_e[h] + z_r[a])
+    t = nearest(z_e[m] + z_r[b])
+
+    base_h = np.concatenate([h, m])
+    base_t = np.concatenate([m, t])
+    base_r = np.concatenate([a, b])
+
+    # Extra plain base edges (path noise + base-relation training signal).
+    eh = rng.integers(0, n_entities, n_extra_base)
+    er = rng.integers(0, n_base_relations, n_extra_base)
+    et = nearest(z_e[eh] + z_r[er])
+    base_h = np.concatenate([base_h, eh])
+    base_t = np.concatenate([base_t, et])
+    base_r = np.concatenate([base_r, er])
+    base_h, base_t, base_r = _dedup(
+        base_h.astype(np.int32), base_t.astype(np.int32), base_r.astype(np.int32)
+    )
+
+    comp_h, comp_t = h.astype(np.int32), t.astype(np.int32)
+    comp_r = (n_base_relations + ci).astype(np.int32)
+    comp_h, comp_t, comp_r = _dedup(comp_h, comp_t, comp_r)
+
+    # Controlled split of the composed triples.
+    n_comp = comp_h.shape[0]
+    perm = rng.permutation(n_comp)
+    n_direct = int(n_comp * direct_frac)
+    n_valid = int(n_comp * valid_frac)
+    direct = perm[:n_direct]
+    valid_i = perm[n_direct : n_direct + n_valid]
+    test_i = perm[n_direct + n_valid :]
+
+    train = (
+        np.concatenate([base_h, comp_h[direct]]),
+        np.concatenate([base_t, comp_t[direct]]),
+        np.concatenate([base_r, comp_r[direct]]),
+    )
+    shuf = rng.permutation(train[0].shape[0])
+    train = tuple(x[shuf] for x in train)
+    return CompositionalKG(
+        train=train,
+        valid=(comp_h[valid_i], comp_t[valid_i], comp_r[valid_i]),
+        test=(comp_h[test_i], comp_t[test_i], comp_r[test_i]),
+        n_entities=n_entities,
+        n_base_relations=n_base_relations,
+        n_composed=n_composed,
+        comp_pairs=comp_pairs,
+    )
 
 
 def write_kg_dir(

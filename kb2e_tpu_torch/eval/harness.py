@@ -25,7 +25,8 @@ u = e·ce computed once, where the JAX harness runs scan segments of
 ``_rank_batch_clustered_body``.
 
 :func:`evaluate_relation_prediction` ranks the true relation of each test
-triple among all R candidates (``Model.relation_scores``).  The mesh path is
+triple among all R candidates (``Model.relation_scores``), with PTransE's
+path evidence when given a path store.  The mesh path is
 not ported.
 """
 
@@ -284,7 +285,8 @@ def evaluate(
 
 
 # Relation prediction scores R′ candidate relations at a time, with R′ cut so
-# that a [B, R′, k] float32 temporary stays within this many bytes.
+# that a [B, R′, k] float32 temporary ([B, P, R′, k] with path evidence)
+# stays within this many bytes.
 RELATION_SLICE_BYTES = 1 << 30
 
 
@@ -295,14 +297,21 @@ def relation_ranks(
     cfg: EmbeddingConfig,
     *,
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    path_store=None,
     device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """(raw, filtered) int32 ranks of each test triple's relation among all R,
     and the batch sizes, as ``kb2e_tpu/eval/harness.py::evaluate_relation_prediction``
-    ranks them without path evidence.
+    ranks them.
 
     Scores are E(h, r′, t) (``Model.relation_scores``), in batches of
-    ``eval_batch_size`` triples.  Raw rank = 1 + #{r′ : s_r′ < s_true or
+    ``eval_batch_size`` triples.  With ``path_store`` (``data/paths.py::PathStore``
+    rows aligned to the test triples, extracted over the train graph) and a
+    ``relation_inv`` table in ``params`` (PTransE), each candidate's score
+    adds the path evidence Σ_p conf(p)·‖comp(p) − r′‖₁: the energy first,
+    then the sum over k of a [B, P, R′, k] difference, then over P, in the
+    JAX package's order; R′ is sliced so that this temporary stays within
+    ``RELATION_SLICE_BYTES``.  Raw rank = 1 + #{r′ : s_r′ < s_true or
     (s_r′ = s_true and r′ < true)}; the filtered rank subtracts the other
     relations known to hold for (h, t) in train ∪ valid ∪ test (set
     semantics: one ``np.unique`` over packed (h·N + t)·R + r keys) that beat
@@ -330,15 +339,34 @@ def relation_ranks(
     h_all, t_all, r_all, cands_all = put(th), put(tt), put(tr), put(cands)
     batch = cfg.eval_batch_size
     k = params["entity"].shape[1]
-    step = max(1, RELATION_SLICE_BYTES // (4 * batch * k))
+    use_paths = path_store is not None and "relation_inv" in params
+    n_paths = 1
+    if use_paths:
+        from kb2e_tpu_torch.models import ptranse
+
+        paths_all, conf_all = put(path_store.rels), put(path_store.conf)
+        rel_all = torch.cat([params["relation"], params["relation_inv"]])
+        n_paths = paths_all.shape[1]
+    step = max(1, RELATION_SLICE_BYTES // (4 * batch * k * n_paths))
     rel_ids = torch.arange(n_rel, device=dev)[None, :]
     raw = torch.empty(n_test, dtype=torch.int32, device=dev)
     filt = torch.empty_like(raw)
+
+    def score(h, t, rels: slice, pv, conf):
+        e = model.relation_scores(params, h, t, rels, distance)
+        if pv is None:
+            return e
+        d = (pv[:, :, None, :] - params["relation"][None, None, rels]).abs_().sum(-1)  # [B, P, R′]
+        return e + (conf[:, :, None] * d).sum(dim=1)
+
     for s in range(0, n_test, batch):
         sl = slice(s, s + batch)
         h, t, true = h_all[sl], t_all[sl], r_all[sl][:, None]
-        scores = torch.cat([model.relation_scores(params, h, t, slice(r0, r0 + step), distance)
-                            for r0 in range(0, n_rel, step)], dim=1)
+        pv = conf = None
+        if use_paths:
+            pv = ptranse.compose_paths(rel_all, paths_all[sl], cfg.path_composition, params.get("comp_w"))
+            conf = conf_all[sl]
+        scores = torch.cat([score(h, t, slice(r0, r0 + step), pv, conf) for r0 in range(0, n_rel, step)], dim=1)
         s_true = torch.gather(scores, 1, true)
         beat = (scores < s_true) | ((scores == s_true) & (rel_ids < true))
         raw[sl] = 1 + torch.sum(beat, dim=1, dtype=torch.int32)
@@ -356,12 +384,15 @@ def evaluate_relation_prediction(
     cfg: EmbeddingConfig,
     *,
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    path_store=None,
     verbose: bool = False,
     device="cuda",
 ) -> Dict[str, float]:
     """Relation prediction on ``device`` (the PTransE paper's second task;
-    the reference has none); returns the metrics, Hits@1 among them."""
-    raw, filt, sizes = relation_ranks(model, params, dataset, cfg, test_triples=test_triples, device=device)
+    the reference has none), with PTransE's path evidence when
+    ``path_store`` is given; returns the metrics, Hits@1 among them."""
+    raw, filt, sizes = relation_ranks(model, params, dataset, cfg, test_triples=test_triples, path_store=path_store,
+                                      device=device)
     if verbose:
         print(f"\rRelation prediction {100.0:05.2f}% ...")
     return metrics_from_ranks(raw, filt, sizes)

@@ -80,8 +80,11 @@ class Model(abc.ABC):
     # True if eval routes each candidate to a per-relation cluster vector
     # (``cluster_vectors`` / ``cluster_centers``, eval/ranking_cluster.py).
     cluster_aware: bool = False
+    # True if training and relation prediction read PCRA path stores
+    # (``data/paths.py``; PTransE).
+    uses_paths: bool = False
     # Tables written beside the reference files as ``<name>.<tag>`` and read
-    # back by eval: file name -> params key.
+    # back by eval: file name -> params key (skipped where params lack the key).
     file_extras: Dict[str, str] = {}
 
     @abc.abstractmethod
@@ -161,6 +164,7 @@ def get_model(name: str) -> Model:
     import kb2e_tpu_torch.models.transh  # noqa: F401
     import kb2e_tpu_torch.models.transr  # noqa: F401
     import kb2e_tpu_torch.models.ctransr  # noqa: F401
+    import kb2e_tpu_torch.models.ptranse  # noqa: F401
 
     try:
         return _REGISTRY[name.lower()]

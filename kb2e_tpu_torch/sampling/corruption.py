@@ -49,13 +49,16 @@ def sample_batch(
     cuckoo_fp: Optional[torch.Tensor] = None,  # [2*M] fingerprint fast probe
     n_relations: int = 0,
     num_negatives: int = 1,
+    return_idx: bool = False,
 ) -> Batch:
     """Draw one training batch: positives + certified-negative corruptions.
 
     ``num_negatives`` K > 1 draws K certified negatives per positive (all on
     the same corruption side — one coin per sample) and returns the batch
     flattened to B·K rows with the positives repeated sample-major (row
-    b·K+j is sample b's j-th negative).
+    b·K+j is sample b's j-th negative).  ``return_idx`` adds ``idx``, the
+    index of each row's positive triple (repeated with it), for consumers
+    with per-triple side data (PTransE's path store).
     """
     dev = heads.device
     n_triples = heads.shape[0]
@@ -93,12 +96,59 @@ def sample_batch(
     nh = torch.where(corrupt_tail[:, None], ph[:, None], j)
     nt = torch.where(corrupt_tail[:, None], j, pt[:, None])
     if kneg == 1:
-        return {"ph": ph, "pt": pt, "r": r, "nh": nh[:, 0], "nt": nt[:, 0], "valid": valid[:, 0]}
-    rep = lambda x: torch.repeat_interleave(x, kneg)  # noqa: E731 — sample-major tiling
-    return {
-        "ph": rep(ph), "pt": rep(pt), "r": rep(r),
-        "nh": nh.reshape(-1), "nt": nt.reshape(-1), "valid": valid.reshape(-1),
-    }
+        out = {"ph": ph, "pt": pt, "r": r, "nh": nh[:, 0], "nt": nt[:, 0], "valid": valid[:, 0]}
+    else:
+        rep = lambda x: torch.repeat_interleave(x, kneg)  # noqa: E731 — sample-major tiling
+        out = {
+            "ph": rep(ph), "pt": rep(pt), "r": rep(r),
+            "nh": nh.reshape(-1), "nt": nt.reshape(-1), "valid": valid.reshape(-1),
+        }
+        i = rep(i)
+    if return_idx:
+        out["idx"] = i
+    return out
+
+
+def sample_relation_negatives(
+    generator: torch.Generator,
+    ph: torch.Tensor,  # [B] positive triple
+    pt: torch.Tensor,
+    r: torch.Tensor,
+    n_relations: int,
+    sorted_h: torch.Tensor,
+    sorted_r: torch.Tensor,
+    sorted_t: torch.Tensor,
+    resample_rounds: int = 4,
+    cuckoo_table: Optional[torch.Tensor] = None,
+    cuckoo_m: int = 0,
+    cuckoo_salt: int = 0,
+    cuckoo_fp: Optional[torch.Tensor] = None,
+):
+    """Corrupted RELATIONS for PTransE's path loss (paper eq. 8: replace r
+    with r′ such that (h, r′, t) is false), as
+    ``kb2e_tpu/sampling/corruption.py::sample_relation_negatives``.
+
+    The same fixed-rounds rejection as :func:`sample_batch`: ``resample_rounds``
+    candidates [B, rounds] drawn at once, the first not known wins; the
+    membership of (h, r, t) itself makes r′ ≠ r.  Returns (nr [B] int32,
+    valid [B] bool).
+    """
+    batch_size = ph.shape[0]
+    cands = torch.randint(0, n_relations, (batch_size, max(1, resample_rounds)), generator=generator,
+                          device=ph.device).to(torch.int32)
+    qh = ph[:, None].expand(cands.shape)
+    qt = pt[:, None].expand(cands.shape)
+    if cuckoo_fp is not None:
+        bad = cuckoo.contains_fp(cuckoo_fp, cuckoo_m, cuckoo_salt, n_relations, qh, cands, qt)
+    elif cuckoo_table is not None:
+        bad = cuckoo.contains(cuckoo_table, cuckoo_m, cuckoo_salt, n_relations, qh, cands, qt)
+    else:
+        bad = membership.contains(sorted_h, sorted_r, sorted_t, qh, cands, qt)
+    ok = ~bad
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    valid = ok.any(dim=1)
+    nr = torch.gather(cands, 1, first[:, None])[:, 0]
+    return nr, valid
 
 
 def batch_from_streams(

@@ -11,7 +11,7 @@ All randomness — the initial tables and every sampled batch — comes from one
 ``torch.Generator`` on the training device, seeded with
 ``cfg.resolved_seed()``.  A checkpoint stores that generator's state, and
 resume restores it, where ``kb2e_tpu`` replays its key splits.  Given
-``init_params`` (TransR's TransE warm start) the loop starts from those
+``init_params`` (the TransE warm start of TransR, CTransR and PTransE) the loop starts from those
 tables and its generator draws only the batches.
 """
 
@@ -45,6 +45,7 @@ def train(
     resume: bool = False,
     eval_every: int = 0,
     eval_fn: Optional[Callable[[Params], dict]] = None,
+    path_store=None,
     device="cuda",
 ) -> Params:
     """Train embeddings on ``device``; returns the final params.
@@ -52,7 +53,9 @@ def train(
     ``update_mode`` 'fast' runs one presampled epoch per epoch
     (:class:`step_lib.EpochRunner`); 'parity' samples each batch and applies
     it with ``model.sequential_update``.  ``init_params`` replaces the
-    model's initial tables (they are moved to ``device``).
+    model's initial tables (they are moved to ``device``).  ``path_store``
+    (PTransE's ``data/paths.py::PathStore`` of ``triples``) goes to the
+    device with the triples, and every batch then carries its rows' paths.
     """
     dev = resolve_device(device)
     if cfg.update_mode not in ("fast", "parity"):
@@ -79,7 +82,7 @@ def train(
             generator.set_state(meta["generator_state"])
             print(f"Resumed from {latest} at epoch {start_epoch}")
 
-    data = step_lib.DeviceData.from_triple_set(triples, dev)
+    data = step_lib.DeviceData.from_triple_set(triples, dev, path_store=path_store)
     batch_size = step_lib.batch_size_for(triples.num_triples, cfg.num_batches)
     if cfg.update_mode == "fast":
         run_epoch = step_lib.make_epoch_runner(model, cfg, batch_size, cfg.num_batches)

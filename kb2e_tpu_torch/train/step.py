@@ -46,10 +46,15 @@ class DeviceData:
     cuckoo_salt: int
     n_relations: int
     n_entities: int
+    # PTransE's path store aligned per triple (None for path-free models).
+    paths: Optional[torch.Tensor] = None  # int32 [T, P, L], −1 padded
+    path_conf: Optional[torch.Tensor] = None  # float32 [T, P]
 
     @classmethod
-    def from_triple_set(cls, ts: TripleSet, device) -> "DeviceData":
-        """Moves ``ts`` to ``device`` with the cuckoo index of its sorted set.
+    def from_triple_set(cls, ts: TripleSet, device, path_store=None) -> "DeviceData":
+        """Moves ``ts`` to ``device`` with the cuckoo index of its sorted set,
+        and ``path_store`` (``data/paths.py::PathStore``, one row per triple
+        of ``ts``) when given.
 
         ``kb2e_tpu`` builds the index in ``TripleSet.from_arrays``; here only
         training pays for the build (592k keys take seconds).
@@ -76,12 +81,16 @@ class DeviceData:
             cuckoo_salt=0 if idx is None else idx.salt,
             n_relations=int(ts.n_relations),
             n_entities=int(ts.n_entities),
+            paths=None if path_store is None else put(path_store.rels, torch.int32),
+            path_conf=None if path_store is None else put(path_store.conf, torch.float32),
         )
 
 
 def sample_batch(generator: torch.Generator, data: DeviceData, cfg: EmbeddingConfig, batch_size: int) -> Batch:
-    """One batch of ``batch_size`` samples from ``data`` under ``cfg``'s sampler settings."""
-    return corruption.sample_batch(
+    """One batch of ``batch_size`` samples from ``data`` under ``cfg``'s sampler
+    settings; with a path store, each row's paths, their confidences and a
+    corrupted relation as well (:func:`_with_path_data`)."""
+    batch = corruption.sample_batch(
         generator,
         data.heads,
         data.tails,
@@ -100,7 +109,32 @@ def sample_batch(generator: torch.Generator, data: DeviceData, cfg: EmbeddingCon
         cuckoo_salt=data.cuckoo_salt,
         n_relations=data.n_relations,
         num_negatives=cfg.num_negatives,
+        return_idx=data.paths is not None,
     )
+    if data.paths is not None:
+        batch = _with_path_data(generator, batch, data, cfg.corruption_resample_rounds)
+    return batch
+
+
+def _with_path_data(generator: torch.Generator, batch: Batch, data: DeviceData, resample_rounds: int) -> Batch:
+    """``batch`` with PTransE's per-row data, as ``kb2e_tpu/train/step.py::_with_path_data``:
+    ``paths`` [B, P, L] and ``conf`` [B, P] of each row's triple (gathered by
+    ``idx``, which is dropped), a corrupted relation ``nr`` and its
+    ``nr_valid``.  The relation draws follow the batch's on the generator,
+    where the JAX package splits a key for them."""
+    idx = batch["idx"]
+    nr, nr_valid = corruption.sample_relation_negatives(
+        generator, batch["ph"], batch["pt"], batch["r"], data.n_relations,
+        data.sorted_h, data.sorted_r, data.sorted_t,
+        resample_rounds=resample_rounds,
+        cuckoo_table=data.cuckoo_table,
+        cuckoo_fp=data.cuckoo_fp,
+        cuckoo_m=data.cuckoo_m,
+        cuckoo_salt=data.cuckoo_salt,
+    )
+    out = {k: v for k, v in batch.items() if k != "idx"}
+    out.update(paths=data.paths[idx], conf=data.path_conf[idx], nr=nr, nr_valid=nr_valid)
+    return out
 
 
 def make_train_step(model: Model, cfg: EmbeddingConfig, batch_size: int):
@@ -126,7 +160,8 @@ class EpochRunner:
 
     ``runner(params, generator, data)`` presamples every batch of the epoch
     in one ``sample_batch`` call (sampling does not depend on the evolving
-    tables) and then applies them with :meth:`apply`, which tests can also
+    tables; with a path store it also draws the epoch's corrupted relations
+    and gathers its paths) and then applies them with :meth:`apply`, which tests can also
     feed injected batches.  With ``fused`` (the default for models that
     support it) the batches update one [N+R, k] table
     (``Model.fused_table_update``).  A model with a ``chunk_size`` (TransR)

@@ -576,3 +576,87 @@ def test_transr_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, 
 def test_update_pass_fits_several_blocks_per_sm_at_fb15k_width(cuda, module, k):
     per_sm = module.resident_blocks_per_sm(k)
     assert per_sm >= (1 if k == module.MAX_K else 4)
+
+
+# --- PTransE: entity eval through the rank count, relation evidence, the update ---------
+
+
+def _ptranse_kg(tmp_path, k):
+    """A small planted KG on disk and dyadic PTransE tables (multiples of 1/8:
+    every energy, composition and evidence term is exact in float32)."""
+    from kb2e_tpu_torch.data import synthetic, triples
+
+    synthetic.write_kg_dir(str(tmp_path), synthetic.planted_kg(300, 12, 4_000, seed=3), 300, 12, seed=3)
+    dataset = triples.load_dataset(str(tmp_path), splits=("train", "valid", "test"), use_native=False)
+    rng = np.random.default_rng(4)
+
+    def dy(*shape):
+        return torch.from_numpy(np.clip(np.round(rng.normal(size=shape) * 3) / 8, -1, 1).astype(np.float32))
+
+    return dataset, {"entity": dy(300, k), "relation": dy(12, k), "relation_inv": dy(12, k)}
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_ptranse_entity_ranks_through_the_rank_count_equal_the_plain_version(cuda, tmp_path, distance):
+    from kb2e_tpu_torch.eval import harness
+
+    dataset, host = _ptranse_kg(tmp_path, 24)
+    cfg = EmbeddingConfig(embedding_size=24, distance=distance)
+    rank_count.reset_launch_counts()
+    card = harness.rank_all(get_model("ptranse"), {k: v.to(cuda) for k, v in host.items()}, dataset, cfg,
+                            device=cuda)
+    n_batches = -(-2 * dataset.test[0].shape[0] // cfg.eval_batch_size)
+    assert rank_count.launch_counts == {rank_count.KERNEL_NAMES[distance]: n_batches}  # one group, one a batch
+    cpu = harness.rank_all(get_model("ptranse"), host, dataset, cfg, device="cpu")
+    for got, want in zip(card, cpu):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("comp", ["add", "mul"])
+def test_ptranse_relation_ranks_with_evidence_on_the_card_equal_the_cpus(cuda, tmp_path, comp, monkeypatch):
+    from kb2e_tpu_torch.data import paths
+    from kb2e_tpu_torch.eval import harness
+
+    dataset, host = _ptranse_kg(tmp_path, 16)
+    train = dataset.train
+    store = paths.build_path_store(train.heads, train.tails, train.rels, train.n_relations, max_paths=6,
+                                   use_native=False, n_entities=dataset.n_entities,
+                                   query_pairs=(dataset.test[0], dataset.test[1]))
+    cfg = EmbeddingConfig(embedding_size=16, path_composition=comp)
+    m = get_model("ptranse")
+    rank_count.reset_launch_counts()
+    card = harness.relation_ranks(m, {k: v.to(cuda) for k, v in host.items()}, dataset, cfg, path_store=store,
+                                  device=cuda)
+    assert not rank_count.launch_counts
+    cpu = harness.relation_ranks(m, host, dataset, cfg, path_store=store, device="cpu")
+    plain = harness.relation_ranks(m, host, dataset, cfg, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(card, cpu)) and not np.array_equal(card[0], plain[0])
+    # R in slices of 5 relations: the same ranks.
+    monkeypatch.setattr(harness, "RELATION_SLICE_BYTES", cfg.eval_batch_size * 6 * 5 * 16 * 4)
+    sliced = harness.relation_ranks(m, {k: v.to(cuda) for k, v in host.items()}, dataset, cfg, path_store=store,
+                                    device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(sliced, cpu))
+
+
+@pytest.mark.parametrize("comp", ["add", "mul", "rnn"])
+def test_ptranse_update_on_the_card_equals_the_cpu(cuda, comp):
+    rng = np.random.default_rng(5)
+    n, n_rel, k, b, p = 200, 9, 32, 300, 6
+    host = {name: torch.from_numpy((rng.normal(size=(rows, k)) * 0.2).astype(np.float32))
+            for name, rows in (("entity", n), ("relation", n_rel), ("relation_inv", n_rel))}
+    if comp == "rnn":
+        host["comp_w"] = torch.from_numpy((np.concatenate([np.eye(k)] * 2) * 0.5).astype(np.float32))
+    hops = rng.integers(0, 2 * n_rel, (b, p, 2)).astype(np.int32)
+    hops[rng.random(hops.shape) < 0.2] = -1
+    batch = {key: torch.from_numpy(rng.integers(0, n_rel if key in ("r", "nr") else n, b).astype(np.int32))
+             for key in ("ph", "pt", "r", "nh", "nt", "nr")}
+    batch.update(valid=torch.from_numpy(rng.random(b) > 0.1), nr_valid=torch.from_numpy(rng.random(b) > 0.1),
+                 paths=torch.from_numpy(hops), conf=torch.from_numpy(rng.random((b, p)).astype(np.float32)))
+    cfg = EmbeddingConfig(embedding_size=k, learning_rate=0.05, path_composition=comp)
+    m = get_model("ptranse")
+    want, want_loss = m.batch_update(host, batch, cfg)
+    got, loss = m.batch_update({key: v.to(cuda) for key, v in host.items()},
+                               {key: v.to(cuda) for key, v in batch.items()}, cfg)
+    for key in want:
+        assert torch.allclose(got[key].cpu(), want[key], rtol=0, atol=1e-5), key
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)

@@ -120,9 +120,17 @@ def test_eval_transe_task_relation_prints_jax_lines(tiny_kg_dir, tmp_path):
 
 
 def test_ptranse_raises_naming_its_queue_item(tiny_kg_dir, tmp_path):
+    """PTransE's queue item (ROADMAP.md Queue 1 item 5) is done: ``--model
+    ptranse`` no longer raises, and both tasks run on TransE-format files
+    (no relation_inv: relation prediction then scores without evidence)."""
+    dataset = triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"))
+    host = _dyadic("transe", dataset.n_entities, dataset.n_relations, 4, seed=9)
+    jax_text.write_embeddings(str(tmp_path), JMethod.BERN, host["entity"], host["relation"], model_name="transe")
     argv = ["--datadir", tiny_kg_dir, "--outdir", str(tmp_path), "--size", "4", "--device", "cpu"]
     for task in ("relation", "entity"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-            eval_cli.main(argv + ["--model", "ptranse", "--task", task])
-    with pytest.raises(NotImplementedError, match="ptranse is not ported"):
-        eval_cli.run_eval("ptranse", EmbeddingConfig(data_dir=tiny_kg_dir), task="relation", device="cpu")
+        got = _run(eval_cli.main, argv + ["--model", "ptranse", "--task", task])
+        want = _run(eval_cli.main, argv + ["--model", "transe", "--task", task])
+        assert got == want and "-- Rank: " in got
+    metrics = eval_cli.run_eval("ptranse", EmbeddingConfig(data_dir=tiny_kg_dir, output_dir=str(tmp_path),
+                                                           embedding_size=4), task="relation", device="cpu")
+    assert metrics["num_corruptions"] == dataset.test[0].shape[0]
