@@ -5,6 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --rank-count-only   # phases 1-2, the rank count's checks and timing
     python3 chip_smoke.py --ranking-alone     # phases 1-2, harness.rank_all timed alone
+    python3 chip_smoke.py --distributed-only  # phases 1-2, the data, the distributed phase
+    python3 chip_smoke.py --nccl-cards        # the same over NCCL on every card of a host (2 or more)
 
 Phases, each printing one line (or a few) and stopping the run with a
 non-zero exit on any failure:
@@ -120,7 +122,29 @@ non-zero exit on any failure:
                 benchmarks/ptranse_composition.py on compositional_kg: with
                 evidence in MECHANISM_BAND, at least MECHANISM_MIN_GAIN above
                 without;
-5. timing   — per kernel at the main path's shapes: the kernel, the plain
+5. distributed — the port's ``parallel/`` package on the card, after the
+              main paths, on the same FB15k-shaped directory:
+              (a) the entity-sharded eval, 2 ranks on cuda:0 over gloo
+              (NCCL refuses two ranks on one device), model axis 2, for
+              the seeded TransE files at ``--distance 0`` and ``1`` and the
+              TransR files at L1: each rank's ranks equal the one-rank
+              harness's exactly, with one rank-count launch per batch on
+              each rank (462 a TransE eval, 1,345 a TransR eval; they add
+              to the kernel records' launches), and each rank's first
+              N_CHECK counts agree with the plain version on that rank's
+              inputs (its shard, its ‖e‖², the shifted true index);
+              (b) data-parallel TransE fast training, 2 ranks on cuda:0
+              over gloo, data axis 2, bench.py's configuration (the batch
+              rounded down to 4,830) for one epoch: after the first batch
+              the tables within atol 2e-6 of the single-rank runner's and
+              the loss within rel 1e-5 (the JAX package's bounds), and the
+              epoch's largest difference printed;
+              (c) ``parallel/multiprocess.py`` at 1 process over NCCL, 2
+              epochs with ``--eval-out``: its metrics equal
+              ``harness.evaluate`` on the tables it wrote.
+              Each part's processes are killed after DIST_DEADLINE_S;
+              their walls are printed beside the card's name and power limit;
+6. timing   — per kernel at the main path's shapes: the kernel, the plain
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
               records count the launches of every eval path (TransE,
@@ -1543,6 +1567,344 @@ def mechanism_path():
     return dict(runs=runs, without=without, with_evidence=with_evidence)
 
 
+# --- the distributed phase ---------------------------------------------------------
+# Two ranks on the one card: NCCL refuses two ranks on one device, so parts
+# (a) and (b) run gloo over CUDA tensors (every collective staged through the
+# host); part (c) runs the production driver alone, over NCCL.
+DIST_WORLD = 2
+DIST_DEADLINE_S = 300  # a part's processes are killed after this
+# Part (a): (what, model, files, distance) of each sharded eval.
+DIST_EVALS = (("eval_transe L1", "transe", "out", 0), ("eval_transe L2", "transe", "out", 1),
+              ("eval_transr L1", "transr", "out_transr", 0))
+DIST_ATOL, DIST_LOSS_RTOL = 2e-6, 1e-5  # tests/test_parallel.py:73-78
+
+
+def dist_inputs(data_dir: str, dev):
+    """Part (b)'s inputs, the same in every process: bench.py's
+    configuration with the batch rounded down to the data axis, seeded
+    TransE-init tables, and the epoch's 100 batches drawn on the card."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance, Method
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.train import step
+
+    ts = triples.load_dataset(data_dir, splits=("train",)).train
+    data = step.DeviceData.from_triple_set(ts, dev)
+    cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=Method.BERN,
+                          distance=Distance.L1, num_batches=N_BATCHES, seed=SEED)
+    batch = TRAIN_BATCH - TRAIN_BATCH % DIST_WORLD
+    model = get_model("transe")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED), N_ENTITIES, N_RELATIONS, cfg, dev)
+    runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
+    return model, cfg, batch, params, runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
+
+
+def dist_rank(part: str, rank: int, port: int, work: str) -> None:
+    """One rank of part ``part`` ('eval' or 'train'), in its own process on
+    cuda:0 over gloo; pickles what it got to ``work/<part>.rank<r>``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.ops import rank_count
+    from kb2e_tpu_torch.parallel import mesh as mesh_lib
+    from kb2e_tpu_torch.parallel import multihost, sharding
+    from kb2e_tpu_torch.train import step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"localhost:{port}", DIST_WORLD, rank, backend="gloo", device=dev)
+    got = {}
+    if part == "eval":
+        mesh = mesh_lib.make_mesh(1, DIST_WORLD, device=dev)
+        dataset = triples.load_dataset(os.path.join(work, "data"), splits=("train", "valid", "test"))
+        counts, kept = rank_count.rank_counts, []
+
+        def keeping_counts(*args, **kwargs):
+            # The shard's inputs and counts of the first launches, for the
+            # plain version after the timed run.
+            out = counts(*args, **kwargs)
+            if len(kept) < N_CHECK // EVAL_BATCH:
+                kept.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                             {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()}, out.clone()))
+            return out
+
+        rank_count.rank_counts = keeping_counts
+        try:
+            for what, model_name, files, flag in DIST_EVALS:
+                params = read_params(model_name, os.path.join(work, files))
+                cfg = EmbeddingConfig(embedding_size=K, distance=Distance(flag))
+                kept.clear()
+                reset_all_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                raw, filt, sizes = harness.rank_all(get_model(model_name), params, dataset, cfg, mesh=mesh)
+                wall = time.perf_counter() - t0
+                launches = all_launch_counts()
+                # K1/K2 against the plain version on this rank's inputs:
+                # its shard of the table, its ‖e‖², the true index shifted
+                # by -row0 (negative or past the shard where another rank
+                # owns the true entity).
+                true_idx = torch.cat([args[3] for args, _, _ in kept])
+                n_local = kept[0][0][0].shape[1]
+                got[what] = dict(raw=raw, filt=filt, sizes=sizes, launches=launches, wall=wall,
+                                 rows=mesh.entity_rows(N_ENTITIES),
+                                 kernel=torch.cat([out for _, _, out in kept]).cpu().numpy(),
+                                 plain=torch.cat([rank_count.rank_counts_reference(*args, **kwargs)
+                                                  for args, kwargs, _ in kept]).cpu().numpy(),
+                                 outside=int(((true_idx < 0) | (true_idx >= n_local)).sum()))
+        finally:
+            rank_count.rank_counts = counts
+    else:
+        mesh = mesh_lib.make_mesh(DIST_WORLD, 1, device=dev)
+        model, cfg, batch, params, batches = dist_inputs(os.path.join(work, "data"), dev)
+        runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, mesh=mesh)
+        params = sharding.place_params(mesh, params)
+        walls = []
+        for sl in (slice(0, 1), slice(1, None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
+            got[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+            walls.append(time.perf_counter() - t0)
+        got["walls"] = walls
+    with open(os.path.join(work, f"{part}.rank{rank}"), "wb") as f:
+        pickle.dump(got, f)
+    multihost.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(cmds, work: str, tag: str):
+    """Start ``cmds`` together, each logging to ``work/<tag>.<i>.log``; wait
+    for all until DIST_DEADLINE_S, kill any left; fail unless every one exits 0."""
+    logs = [open(os.path.join(work, f"{tag}.{i}.log"), "w") for i in range(len(cmds))]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT) for cmd, log in zip(cmds, logs)]
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    texts = [open(os.path.join(work, f"{tag}.{i}.log")).read() for i in range(len(cmds))]
+    check(rcs == [0] * len(cmds), f"{tag}: exit codes {rcs} (None: killed at {DIST_DEADLINE_S} s)\n"
+          + "\n".join(t[-3000:] for t in texts))
+    return texts
+
+
+def dist_part(part: str, work: str):
+    """Part ``part``'s two ranks; returns what each pickled."""
+    import pickle
+
+    port = free_port()
+    child = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "chip_smoke.dist_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])")
+    run_processes([[sys.executable, "-c", child, ROOT, part, str(r), str(port), work] for r in range(DIST_WORLD)],
+                  work, part)
+    out = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(work, f"{part}.rank{r}"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def distributed_phase(work: str):
+    """(a) the entity-sharded eval, 2 ranks, model axis 2, against the
+    one-rank harness, each rank's rank counts against the plain version;
+    (b) data-parallel TransE training, 2 ranks, data axis 2, against the
+    single-rank runner; (c) ``parallel/multiprocess.py`` at 1 process over
+    NCCL against ``harness.evaluate`` of its written tables."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.ops import rank_count
+    from kb2e_tpu_torch.train import step
+
+    card = card_line()
+    data_dir = os.path.join(work, "data")
+    results = {"evals": []}
+
+    # (a) the sharded eval.
+    t0 = time.perf_counter()
+    ranks = dist_part("eval", work)
+    wall_a = time.perf_counter() - t0
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
+    for what, model_name, files, flag in DIST_EVALS:
+        model, distance = get_model(model_name), Distance(flag)
+        params = read_params(model_name, os.path.join(work, files))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K, distance=distance))
+        one_wall = time.perf_counter() - t1
+        name = rank_count.KERNEL_NAMES[model.effective_distance(distance)]
+        for r, got in enumerate(ranks):
+            ev = got[what]
+            check(np.array_equal(ev["raw"], raw) and np.array_equal(ev["filt"], filt) and ev["sizes"] == sizes,
+                  f"{what} rank {r}: sharded ranks differ from the one-rank harness's in "
+                  f"{int((ev['raw'] != raw).sum())} raw and {int((ev['filt'] != filt).sum())} filtered places")
+            check(ev["launches"] == {name: len(sizes)},
+                  f"{what} rank {r}: launches {ev['launches']}, expected {{{name!r}: {len(sizes)}}}")
+            check(ev["plain"].shape[0] == N_CHECK, f"{what} rank {r}: {ev['plain'].shape[0]} queries checked")
+            ev["n_off"], ev["max_off"] = compare(
+                torch.from_numpy(ev["kernel"]), torch.from_numpy(ev["plain"]), False,
+                f"sharded {what} rank {r}, first {N_CHECK} queries against the plain version on the shard's inputs")
+            results["evals"].append(dict(kernel=name, launches=len(sizes), max_off=ev["max_off"],
+                                         what=f"sharded {what} rank {r}"))
+        m = harness.metrics_from_ranks(raw, filt, sizes)
+        print(f"[distributed] (a) {card}: sharded {what}, model axis {DIST_WORLD}, gloo on cuda:0: "
+              + "; ".join(f"rank {r} rows {got[what]['rows'][0]}:{got[what]['rows'][1]}, "
+                          f"{got[what]['launches'][name]} launches of {name}, rank_all {got[what]['wall']:.3f} s, "
+                          f"first {N_CHECK} counts against the plain version on the shard's inputs: "
+                          f"{got[what]['n_off']} off (max {got[what]['max_off']}), {got[what]['outside']} with the "
+                          "true entity outside the shard"
+                          for r, got in enumerate(ranks))
+              + f"; one rank {one_wall:.3f} s; {2 * N_TEST} ranks equal exactly (filtered MR "
+              f"{m['filtered_mean_rank']:.6f}, Hits@10 {m['filtered_hits10']:.6f})", flush=True)
+    print(f"[distributed] (a) {card}: wall {wall_a:.1f} s (two processes: start, loading, three evals)", flush=True)
+
+    # (b) data-parallel training.
+    t0 = time.perf_counter()
+    ranks = dist_part("train", work)
+    wall_b = time.perf_counter() - t0
+    model, cfg, batch, params, batches = dist_inputs(data_dir, torch.device("cuda"))
+    runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
+    want, one_walls = {}, []
+    for sl in (slice(0, 1), slice(1, None)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
+        want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+        one_walls.append(time.perf_counter() - t1)
+    for r, got in enumerate(ranks):
+        first = max(float(np.abs(got[0][0][k] - want[0][0][k]).max()) for k in want[0][0])
+        check(first <= DIST_ATOL, f"(b) rank {r}: the first batch's tables differ by {first:.3e} > {DIST_ATOL}")
+        check(abs(got[0][1] - want[0][1]) <= DIST_LOSS_RTOL * abs(want[0][1]),
+              f"(b) rank {r}: first-batch loss {got[0][1]!r} against {want[0][1]!r}")
+        end = max(float(np.abs(got[1][0][k] - want[1][0][k]).max()) for k in want[1][0])
+        loss_end = got[0][1] + got[1][1]
+        print(f"[distributed] (b) {card}: data-parallel train_transe, data axis {DIST_WORLD}, gloo on cuda:0, "
+              f"batch {batch} of bench.py's configuration: rank {r}: first batch max |diff| {first:.3e} (bound "
+              f"{DIST_ATOL}), loss {got[0][1]:.6f} against {want[0][1]:.6f}; the epoch's largest difference "
+              f"{end:.3e}, epoch loss {loss_end:.6f} against {want[0][1] + want[1][1]:.6f}; walls: first batch "
+              f"{got['walls'][0]:.3f} s, the other 99 {got['walls'][1]:.3f} s (one rank: {one_walls[0]:.3f} s, "
+              f"{one_walls[1]:.3f} s)", flush=True)
+    print(f"[distributed] (b) {card}: wall {wall_b:.1f} s (two processes: start, loading, the cuckoo build, "
+          "one epoch)", flush=True)
+
+    # (c) the production driver alone over NCCL.
+    out_npz, eval_out = (os.path.join(work, name) for name in ("driver.npz", "driver_eval.json"))
+    t0 = time.perf_counter()
+    log = run_processes([[sys.executable, "-m", "kb2e_tpu_torch.parallel.multiprocess", "--coordinator",
+                          f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0", "--model", "transe",
+                          "--datadir", data_dir, *TRAIN_FLAGS, "--epochs", "2",
+                          "--device", "cuda", "--out-npz", out_npz, "--eval-out", eval_out]], work, "driver")[0]
+    wall_c = time.perf_counter() - t0
+    check("backend nccl" in log, "the driver did not run over NCCL:\n" + log[-2000:])
+    with open(eval_out, encoding="utf-8") as f:
+        driver_metrics = json.load(f)
+    tables = {k: torch.from_numpy(v).cuda() for k, v in np.load(out_npz).items()}
+    want_metrics = harness.evaluate(get_model("transe"), tables, dataset, EmbeddingConfig(embedding_size=K))
+    check(driver_metrics == want_metrics, f"(c) the driver's metrics {driver_metrics} differ from evaluate's "
+          f"{want_metrics}")
+    epochs = [line for line in log.splitlines() if line.startswith("Epoch:")]
+    print(f"[distributed] (c) {card}: parallel/multiprocess.py, 1 process over NCCL, 2 epochs + --eval-out: "
+          f"{'; '.join(epochs)}; metrics equal harness.evaluate's on its tables (filtered MR "
+          f"{want_metrics['filtered_mean_rank']:.6f}); wall {wall_c:.1f} s (start, loading, training, eval)",
+          flush=True)
+    results["walls"] = (wall_a, wall_b, wall_c)
+    return results
+
+
+def nccl_cards_phase(work: str):
+    """``--nccl-cards``: the production paths over NCCL, one rank per card, on
+    every card of the host (an even count of two or more): ``torchrun``
+    ``train_transe`` for 1 epoch of bench.py's configuration at data axis N
+    and at (N/2, 2), each within 1e-5 of one card's loop on the same draws
+    (the files hold 6 decimals); and ``parallel/multiprocess.py`` over the
+    cards at model axis 2 for that epoch with ``--eval-out``: its metrics
+    equal ``harness.evaluate`` of its tables on one card, and its tables
+    those of the (N/2, 2) run."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Method
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.io import text
+    from kb2e_tpu_torch.train import step
+
+    n = torch.cuda.device_count()
+    check(n >= 2 and n % 2 == 0, f"--nccl-cards needs an even count of two or more cards, found {n}")
+    card = card_line()
+    data_dir = os.path.join(work, "data")
+    ts = triples.load_dataset(data_dir, splits=("train",)).train
+    cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=Method.BERN,
+                          num_batches=N_BATCHES, seed=SEED)
+    model, data = get_model("transe"), step.DeviceData.from_triple_set(ts, torch.device("cuda"))
+    walls = {}
+    for data_axis, model_axis in ((n, 1), (n // 2, 2)):
+        # One card's loop on the same draws (the generator draws the init,
+        # then the epoch), at the loop's batch: 4,831 rounded down to the
+        # data axis.
+        batch = TRAIN_BATCH - TRAIN_BATCH % data_axis
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = model.init_params(gen, N_ENTITIES, N_RELATIONS, cfg, torch.device("cuda"))
+        want, _ = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)(params, gen, data)
+        want = {k: v.cpu().numpy() for k, v in want.items()}
+        out = os.path.join(work, f"nccl_{data_axis}x{model_axis}")
+        t0 = time.perf_counter()
+        run_processes([[sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
+                        "-m", "kb2e_tpu_torch.cli.train_transe", "--data-axis", str(data_axis), "--model-axis",
+                        str(model_axis), "--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "1"]],
+                      work, f"torchrun_{data_axis}x{model_axis}")
+        walls[data_axis, model_axis] = time.perf_counter() - t0
+        got = text.read_embeddings(out, Method.BERN, N_ENTITIES, N_RELATIONS, K)
+        diffs = {k: float(np.abs(got[k] - want[k]).max()) for k in ("entity", "relation")}
+        print(f"[nccl] {card} x {n}: torchrun train_transe --data-axis {data_axis} --model-axis {model_axis}, "
+              f"batch {batch}, 1 epoch over NCCL: the files' largest difference from one card's loop {diffs}; "
+              f"wall {walls[data_axis, model_axis]:.1f} s (start, loading, the cuckoo build, the epoch)", flush=True)
+        check(max(diffs.values()) <= 1e-5, f"torchrun {data_axis}x{model_axis}: the files differ from one card's")
+    npz, eval_out, port = os.path.join(work, "nccl_driver.npz"), os.path.join(work, "nccl_driver.json"), free_port()
+    t0 = time.perf_counter()
+    run_processes([[sys.executable, "-m", "kb2e_tpu_torch.parallel.multiprocess", "--coordinator",
+                    f"localhost:{port}", "--num-processes", str(n), "--process-id", str(r), "--model", "transe",
+                    "--datadir", data_dir, *TRAIN_FLAGS, "--epochs", "1", "--model-axis", "2", "--device", "cuda",
+                    "--out-npz", npz, "--eval-out", eval_out] for r in range(n)], work, "nccl_driver")
+    walls["driver"] = time.perf_counter() - t0
+    tables = dict(np.load(npz))
+    mesh_files = text.read_embeddings(os.path.join(work, f"nccl_{n // 2}x2"), Method.BERN, N_ENTITIES, N_RELATIONS, K)
+    diff = max(float(np.abs(tables[k] - mesh_files[k]).max()) for k in ("entity", "relation"))
+    check(diff <= 1e-5, f"the driver's tables differ from torchrun's at ({n // 2}, 2) by {diff:.3e}")
+    with open(eval_out, encoding="utf-8") as f:
+        driver_metrics = json.load(f)
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
+    want_metrics = harness.evaluate(model, {k: torch.from_numpy(v).cuda() for k, v in tables.items()}, dataset,
+                                    EmbeddingConfig(embedding_size=K))
+    check(driver_metrics == want_metrics, f"the driver's sharded metrics {driver_metrics} differ from one card's "
+          f"{want_metrics}")
+    print(f"[nccl] {card} x {n}: parallel/multiprocess.py, {n} processes over NCCL, mesh ({n // 2}, 2), 1 epoch + "
+          f"--eval-out: tables within {diff:.3e} of torchrun's; sharded metrics equal one card's evaluate (filtered "
+          f"MR {want_metrics['filtered_mean_rank']:.6f}); wall {walls['driver']:.1f} s", flush=True)
+    return {f"{k[0]}x{k[1]}" if isinstance(k, tuple) else k: v for k, v in walls.items()}
+
+
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -2093,7 +2455,8 @@ def rank_count_timing(tables, ctx, results):
             # projecting models' for each flag that ranks by this distance.
             paths = [("eval_transe", results[distance]), ("eval_ptranse", results["ptranse_eval"][distance])] + [
                 (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
-                for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name]
+                for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name] + [
+                (ev["what"], ev) for ev in results["distributed"]["evals"] if ev["kernel"] == name]
             record["launches"] = sum(ev["launches"] for _, ev in paths)
             record["max_abs_err"] = max([worst[distance]] + [ev["max_off"] for _, ev in paths])
             print(f"[timing] {name}: eval {results[distance]['wall']:.2f} s (ranking alone "
@@ -2184,9 +2547,9 @@ def ctransr_timing(ctx, results):
     print(f"[timing] {card}: train_ctransr fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
           + f"; build_centers {results['centers_s']:.3f} s", flush=True)
-    # Two runs a part and the profiler on 118 chunks, where TransR takes
-    # three and 236: the added phases stay near three minutes.
-    epoch_breakdown(ctx, "ctransr", results["ctransr_params"], fast_reps=2, profile_window=118, parity=False)
+    # One run a part and the profiler on 118 chunks (TransR: three runs,
+    # 118 chunks), to leave room for the distributed phase.
+    epoch_breakdown(ctx, "ctransr", results["ctransr_params"], fast_reps=1, profile_window=118, parity=False)
     # The routed sweep's device share on the first groups (the profiler on
     # all 1,345 batches would take longer than the eval).
     from kb2e_tpu_torch import EmbeddingConfig, get_model
@@ -2283,9 +2646,10 @@ def timing_phase(tables, ctx, results):
     records.append(transr_timing(ctx, results))
     took("the TransR update timing")
     # Three fast epochs of TransR (4-7 s each) where the others take five,
-    # and the profiler on an eighth of its fast epoch's 1,888 chunks (the
-    # whole took 4 minutes), to keep the smoke near half its time limit.
-    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, profile_window=236)
+    # and the profiler on a sixteenth of its fast epoch's 1,888 chunks (the
+    # whole took 4 minutes, an eighth 28-35 s), to leave room for the
+    # distributed phase under 1,000 s.
+    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, profile_window=118)
     lap = time.perf_counter()
     ctransr_timing(ctx, results)
     took("the CTransR timing")
@@ -2323,8 +2687,19 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:
         data_dir, out_dir, transh_dir, transr_dir = phase("data", data_phase, tables, transh, transr, work)
+        if sys.argv[1:] == ["--distributed-only"]:
+            # The distributed phase alone, for work on that path.
+            print(json.dumps({"walls": phase("distributed", distributed_phase, work)["walls"]}))
+            print(card)
+            return 0
+        if sys.argv[1:] == ["--nccl-cards"]:
+            # The production paths over NCCL across every card of the host.
+            print(json.dumps({"walls": phase("nccl", nccl_cards_phase, work)}))
+            print(card)
+            return 0
         ctx = phase("kernels", kernels_phase, tables, transh, transr, data_dir, work)
         results = phase("main", main_phase, work, data_dir, out_dir, transh_dir, transr_dir)
+        results["distributed"] = phase("distributed", distributed_phase, work)
         records = phase("timing", timing_phase, tables, ctx, results)
 
     print(card)

@@ -66,9 +66,9 @@ def build_parser(prog: str, description: str) -> argparse.ArgumentParser:
     add("eval-impl", dest="eval_impl", default="auto", choices=("auto", "xla", "pallas"),
         help="ranking sweep [auto: the rank-count kernel; 'xla' has no counterpart here]")
     add("data-axis", dest="data_axis", type=int, default=None,
-        help="mesh data-parallel axis size (default: single device)")
+        help="mesh data-parallel axis size (default: single device; above 1, launch with torchrun)")
     add("model-axis", dest="model_axis", type=int, default=None,
-        help="mesh model-parallel axis size (entity-table sharding)")
+        help="mesh model-parallel axis size (entity-table sharding; above 1, launch with torchrun)")
     add("metrics-jsonl", dest="metrics_jsonl", default=None,
         help="append per-epoch JSONL metrics to this path")
     add("tensorboard-dir", dest="tensorboard_dir", default=None,

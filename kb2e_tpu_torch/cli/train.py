@@ -7,6 +7,14 @@ write reference-format embedding files.  Runs on ``--device`` (default
 ``cuda``).  ``--model`` takes the JAX package's choices: TransE, TransH,
 TransR, CTransR and PTransE.  PTransE first builds the PCRA path store of the
 train split (``data/paths.py``) and prints the JAX package's coverage line.
+
+``--data-axis`` / ``--model-axis`` with a product above 1 train over that
+many ranks, one process each, started by ``torchrun``
+(``torchrun --nproc_per_node 2 -m kb2e_tpu_torch.cli.train_transe
+--data-axis 2 ...``): each rank joins the process group from torchrun's
+environment (``parallel/mesh.py::from_torchrun``: NCCL on
+``cuda:{LOCAL_RANK % device_count}``, gloo with ``--device cpu``), and
+rank 0 writes the files.  Started any other way, those flags raise.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from kb2e_tpu_torch.data import paths as paths_lib
 from kb2e_tpu_torch.data import triples as data_lib
 from kb2e_tpu_torch.io import text as text_io
 from kb2e_tpu_torch.models import base as model_base
+from kb2e_tpu_torch.parallel import mesh as mesh_lib
+from kb2e_tpu_torch.parallel import multihost
 from kb2e_tpu_torch.train import loop as train_loop
 from kb2e_tpu_torch.utils import logging as log_lib
 from kb2e_tpu_torch.utils import profiling
@@ -42,8 +52,17 @@ def run_training(
     eval_every=0,
     device="cuda",
 ):
-    """Train ``model_name`` and write its embedding files; returns the params."""
-    dev = resolve_device(device)
+    """Train ``model_name`` and write its embedding files; returns the params.
+
+    With ``cfg.data_axis`` × ``cfg.model_axis`` > 1 this process is one rank
+    of a ``torchrun`` launch (``mesh_lib.from_torchrun`` raises otherwise)."""
+    mesh = None
+    if mesh_lib.axes_product(cfg.data_axis, cfg.model_axis) > 1:
+        mesh = mesh_lib.from_torchrun(cfg.data_axis, cfg.model_axis, device)
+        print(f"rank {multihost.process_index()} of {multihost.process_count()}: {mesh}")
+    dev = resolve_device(device if mesh is None else mesh.device)
+    # Rank 0 alone writes the metrics and the files.
+    writer = multihost.process_index() == 0
     model = model_base.get_model(model_name)
     print(cfg.describe())
 
@@ -71,8 +90,8 @@ def run_training(
             f"{time.perf_counter() - t0:.1f}s)"
         )
 
-    logger = log_lib.jsonl_logger(metrics_jsonl) if metrics_jsonl else None
-    tb_sink = log_lib.TensorBoardSink(tensorboard_dir) if tensorboard_dir else None
+    logger = log_lib.jsonl_logger(metrics_jsonl) if metrics_jsonl and writer else None
+    tb_sink = log_lib.TensorBoardSink(tensorboard_dir) if tensorboard_dir and writer else None
     metrics_fn = log_lib.fan_out(logger.log if logger else None, tb_sink)
     try:
         params = train_loop.train(
@@ -85,9 +104,10 @@ def run_training(
             checkpoint_every=checkpoint_every,
             resume=resume,
             eval_every=eval_every,
-            eval_fn=_make_valid_eval(model, cfg, dataset, dev) if eval_every else None,
+            eval_fn=_make_valid_eval(model, cfg, dataset, dev, mesh) if eval_every else None,
             path_store=path_store,
             device=dev,
+            mesh=mesh,
         )
     finally:
         if tb_sink is not None:
@@ -95,12 +115,19 @@ def run_training(
         if logger is not None:
             logger.close()
 
-    host = params_to_numpy({k: v.float() for k, v in params.items()})
-    text_io.write_embeddings(
-        cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
-        weights=host[model.weights_key] if model.weights_key else None, model_name=model_name,
-        extras={name: host[key] for name, key in model.file_extras.items() if key in host} or None,
-    )
+    if writer:
+        host = params_to_numpy({k: v.float() for k, v in params.items()})
+        text_io.write_embeddings(
+            cfg.output_dir, C.Method.from_any(cfg.method), host["entity"], host["relation"],
+            weights=host[model.weights_key] if model.weights_key else None, model_name=model_name,
+            extras={name: host[key] for name, key in model.file_extras.items() if key in host} or None,
+        )
+    if mesh is not None:
+        # Only once the tables have reached the host: NCCL's last all_reduce
+        # (the loop's gather of the entity rows) may still be in flight.
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        torch.distributed.destroy_process_group()
     return params
 
 
@@ -143,15 +170,16 @@ def _maybe_warm_start(model, cfg: EmbeddingConfig, ts, device):
     return params
 
 
-def _make_valid_eval(model, cfg: EmbeddingConfig, dataset, device):
-    """Periodic link-prediction eval on the VALID split (no reference counterpart)."""
+def _make_valid_eval(model, cfg: EmbeddingConfig, dataset, device, mesh=None):
+    """Periodic link-prediction eval on the VALID split (no reference
+    counterpart); entity-sharded over ``mesh`` when given."""
     from kb2e_tpu_torch.eval import harness
 
     if dataset.valid is None or dataset.valid[0].size == 0:
         return None
 
     def eval_fn(params):
-        return harness.evaluate(model, params, dataset, cfg, test_triples=dataset.valid, device=device)
+        return harness.evaluate(model, params, dataset, cfg, test_triples=dataset.valid, device=device, mesh=mesh)
 
     return eval_fn
 

@@ -3,8 +3,7 @@
 ``EmbeddingConfig`` mirrors the reference's 12-field ``EmbeddingArguments``
 (``common/args.h:9-28``, defaults at ``common/args.cpp:19-31``) and carries
 every extension field of ``kb2e_tpu.config.EmbeddingConfig`` with the same
-name and default, so the two packages parse the same flags.  Fields whose
-code path is not ported yet (the mesh axes) are carried unread.
+name and default, so the two packages parse the same flags.
 """
 
 from __future__ import annotations
@@ -66,7 +65,8 @@ class EmbeddingConfig:
     # Diagnostic ablation of the TPU package's TransR chunk pipeline; kept so
     # configs round-trip, never read here.
     debug_ablate: str = ""
-    # Optional mesh axis sizes for distributed runs; None = single device.
+    # Optional mesh axis sizes for distributed runs (``parallel/mesh.py``);
+    # None = single device.  A product above 1 needs one process per rank.
     data_axis: Optional[int] = None
     model_axis: Optional[int] = None
 

@@ -26,8 +26,15 @@ u = e·ce computed once, where the JAX harness runs scan segments of
 
 :func:`evaluate_relation_prediction` ranks the true relation of each test
 triple among all R candidates (``Model.relation_scores``), with PTransE's
-path evidence when given a path store.  The mesh path is
-not ported.
+path evidence when given a path store.
+
+Under a mesh (``parallel/mesh.py``; ``rank_all(mesh=...)``, as
+``kb2e_tpu/eval/harness.py:429-517``) the entity axis is cut over the
+``model`` axis: each rank projects only its rows per group, builds their
+aligned transpose (and ‖e‖²), and ranks every batch through
+``parallel/eval.py``: the rank count (or CTransR's routed sweep) on its
+shard, anchors and energies from their owners, the counts summed.  Every
+rank gets the one-rank harness's ranks.
 """
 
 from __future__ import annotations
@@ -148,6 +155,7 @@ def rank_all(
     *,
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """(raw, filtered) int32 ranks of every query in the harness's order, and
     the size of each batch in that order.
@@ -156,9 +164,11 @@ def rank_all(
     (common/evaluation.cpp:230-238).  For a model without projection that is
     the harness's order; a model with one ranks them grouped by relation
     (a stable sort of the query list by relation id).  A cluster-aware model
-    ranks through the cluster-routed sweep (no rank-count launch).
+    ranks through the cluster-routed sweep (no rank-count launch).  With
+    ``mesh`` each rank sweeps its entity rows on the mesh's device;
+    ``params["entity"]`` may be the full table or this rank's rows.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if cfg.eval_impl not in ("auto", "pallas"):
         raise ValueError(
             f"eval_impl={cfg.eval_impl!r}: the port has one ranking sweep, the rank-count "
@@ -233,6 +243,14 @@ def rank_all(
     # One candidate width for the whole eval, as the JAX harness compiles once.
     kmax = _round_up_pow2(int(q_count.max(initial=1)))
 
+    row0 = 0
+    if mesh is not None:
+        from kb2e_tpu_torch.parallel import eval as par_eval
+        from kb2e_tpu_torch.parallel import sharding
+
+        row0, _ = mesh.entity_rows(dataset.n_entities)
+        params = {**params, "entity": sharding.local_rows(mesh, params["entity"], dataset.n_entities)}
+
     raws = torch.empty((feed_sel.shape[0] // batch_size, batch_size), dtype=torch.int32, device=dev)
     filts = torch.empty_like(raws)
     i = 0
@@ -247,22 +265,33 @@ def rank_all(
                 sl = slice(i * batch_size, (i + 1) * batch_size)
                 anchor = feed["q_anchor"][sl].to(torch.int64)
                 cands = ranking.feed_candidates(feed["q_lo"][sl], feed["q_count"][sl], feed["filt_vals"], kmax)
-                raws[i], filts[i] = ranking_cluster.rank_queries_clustered(
-                    proj, ent, proj[anchor], ent[anchor], feed["q_sign"][sl], vecs, centers, feed["q_true"][sl],
-                    cands, distance, block_size, u=u,
-                )
+                if mesh is None:
+                    raws[i], filts[i] = ranking_cluster.rank_queries_clustered(
+                        proj, ent, proj[anchor], ent[anchor], feed["q_sign"][sl], vecs, centers,
+                        feed["q_true"][sl], cands, distance, block_size, u=u,
+                    )
+                else:
+                    raws[i], filts[i] = par_eval.rank_queries_clustered_sharded(
+                        mesh, proj, ent, row0, anchor, feed["q_sign"][sl], vecs, centers, feed["q_true"][sl],
+                        cands, distance, block_size, u,
+                    )
                 i += 1
             continue
         # The group's table, projected once, that table transposed in the
         # rank count's aligned layout, and for L2 its squared norms.
         proj_t = rank_count.aligned_transpose(proj)
-        e_sq = distances.squared_norms(proj_t) if distance == Distance.L2 else None
+        e_sq = None
+        if distance == Distance.L2:
+            e_sq = (distances.squared_norms(proj_t) if mesh is None
+                    else par_eval.shard_squared_norms(proj_t, row0, dataset.n_entities))
         for _ in range(0, idxs.shape[0], batch_size):
-            raws[i], filts[i] = ranking.rank_feed_queries(
-                proj, proj_t, params["relation"], **feed,
-                start=i * batch_size, distance=distance, block_size=block_size,
-                batch=batch_size, kmax=kmax, e_sq=e_sq,
-            )
+            knobs = dict(start=i * batch_size, distance=distance, block_size=block_size, batch=batch_size,
+                         kmax=kmax, e_sq=e_sq)
+            if mesh is None:
+                raws[i], filts[i] = ranking.rank_feed_queries(proj, proj_t, params["relation"], **feed, **knobs)
+            else:
+                raws[i], filts[i] = par_eval.rank_feed_queries_sharded(
+                    mesh, proj, proj_t, row0, params["relation"], **feed, **knobs)
             i += 1
     return raws.reshape(-1).cpu().numpy()[real], filts.reshape(-1).cpu().numpy()[real], sizes
 
@@ -276,9 +305,11 @@ def evaluate(
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
-    """Run filtered/raw link prediction on ``device``; returns the metrics."""
-    raw, filt, sizes = rank_all(model, params, dataset, cfg, test_triples=test_triples, device=device)
+    """Run filtered/raw link prediction on ``device`` (or over ``mesh``'s
+    ranks, the entity axis cut over its model axis); returns the metrics."""
+    raw, filt, sizes = rank_all(model, params, dataset, cfg, test_triples=test_triples, device=device, mesh=mesh)
     if verbose:
         print(f"\rProcessed {100.0:05.2f}% ...")
     return metrics_from_ranks(raw, filt, sizes)

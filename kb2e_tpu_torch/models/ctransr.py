@@ -221,15 +221,17 @@ class CTransR(transr.TransR):
             delta = torch.cat([lr * wx_pos, -lr * wx_pos, -lr * wx_neg, lr * wx_neg])
             ent = scatter.scatter_add(ent, idx, delta, cfg.scatter_mode)
             reg = 2.0 * self.alpha * (rv - rel[ri]) * m
-            rel_c = rel_c.reshape(-1, k).index_add(0, flat, lr * (x_pos - x_neg) - lr * reg)
-            rel = rel.index_add(0, ri, lr * reg)
+            rel_c = scatter.scatter_add(rel_c.reshape(-1, k), flat, lr * (x_pos - x_neg) - lr * reg)
+            rel = scatter.scatter_add(rel, ri, lr * reg)
 
-            # Norms of the touched rows (the tables above are new, not the caller's).
-            ent[idx] = projections.sphere_norm(ent[idx])
-            rel[ri] = projections.ball_norm(rel[ri])
-            rel_c[flat] = projections.sphere_norm(rel_c[flat])
+            # Norms of the touched rows (the tables above are new, not the
+            # caller's); under a data-parallel step, every rank's rows.
+            e_rows, r_rows, c_rows = scatter.touched(idx), scatter.touched(ri), scatter.touched(flat)
+            ent[e_rows] = projections.sphere_norm(ent[e_rows])
+            rel[r_rows] = projections.ball_norm(rel[r_rows])
+            rel_c[c_rows] = projections.sphere_norm(rel_c[c_rows])
             rel_c = rel_c.reshape(n_rel, n_clusters, k)
-            proj[ri] = projections.sphere_norm(proj[ri])
+            proj[r_rows] = projections.sphere_norm(proj[r_rows])
 
             # One masked iteration of ‖e·W‖ ≤ 1 on the three entity groups:
             # tmp = 2·eW;  W −= lr·outer(e, tmp);  e −= lr·W'·tmp.

@@ -151,6 +151,11 @@ class PTransE(transe.TransE):
         ent = scatter.scatter_add(ent, idx, delta, cfg.scatter_mode)
 
         path_loss, g_rel, g_inv, g_w = self.path_loss_and_grads(rel, rel_inv, comp_w, batch, cfg)
+        # The gradients are where this batch's rows become table deltas: a
+        # data-parallel step sums them over its ranks.
+        g_rel, g_inv = scatter.summed(g_rel), scatter.summed(g_inv)
+        if g_w is not None:
+            g_w = scatter.summed(g_w)
         out = {
             "entity": projections.ball_norm(ent),
             "relation": projections.ball_norm(rel + d_rel - lr * g_rel),

@@ -142,10 +142,12 @@ class TransR(base.Model):
             delta = torch.cat([lr * wx_pos, -lr * wx_pos, -lr * wx_neg, lr * wx_neg])
             ent = scatter.scatter_add(ent, idx, delta, cfg.scatter_mode)
 
-            # Sphere norms of the touched rows (scatter_add returned new tables).
-            ent[idx] = projections.sphere_norm(ent[idx])
-            rel[ri] = projections.sphere_norm(rel[ri])
-            proj[ri] = projections.sphere_norm(proj[ri])
+            # Sphere norms of the touched rows (scatter_add returned new
+            # tables); under a data-parallel step, every rank's rows.
+            e_rows, r_rows = scatter.touched(idx), scatter.touched(ri)
+            ent[e_rows] = projections.sphere_norm(ent[e_rows])
+            rel[r_rows] = projections.sphere_norm(rel[r_rows])
+            proj[r_rows] = projections.sphere_norm(proj[r_rows])
 
             # One masked iteration of transRNorm on the four pair groups:
             # tmp = 2·aW;  W −= lr·outer(a, tmp);  a −= lr·W'·tmp.

@@ -7,11 +7,46 @@ vectorised).  ``scatter_add_direct`` is one duplicate-tolerant
 sort and a segmented cumulative sum, then adds one row per unique id.  Both
 compute the same sums, up to the order of float additions.  Both return a
 new table: the input is not written.
+
+:func:`scatter_add` is also where per-sample contributions become table
+deltas, and so the one point a data-parallel step hooks
+(``parallel/dist_step.py``): under :func:`every_rank`, the indices and
+deltas of every rank's share of the batch are gathered, in the batch's
+order, before the add; :func:`touched` gives the rows the whole batch
+touches, and :func:`summed` sums a dense contribution (PTransE's gradients)
+over the ranks.  Without a hook the three are what they were on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
+
+# The data-parallel hook in force (``parallel/dist_step.py::RowGather``), or None.
+_hook = None
+
+
+@contextlib.contextmanager
+def every_rank(hook) -> Iterator[None]:
+    """Route :func:`scatter_add`, :func:`touched` and :func:`summed` through ``hook``."""
+    global _hook
+    outer, _hook = _hook, hook
+    try:
+        yield
+    finally:
+        _hook = outer
+
+
+def touched(idx: torch.Tensor) -> torch.Tensor:
+    """The row ids of ``idx`` over the whole batch (every rank's share)."""
+    return idx if _hook is None else _hook.touched(idx)
+
+
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """A dense per-rank contribution summed over the ranks."""
+    return x if _hook is None else _hook.dense(x)
 
 
 def scatter_add_direct(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -47,6 +82,8 @@ def scatter_add_dedup(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tenso
 
 
 def scatter_add(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor, mode: str = "direct") -> torch.Tensor:
+    if _hook is not None:
+        idx, delta = _hook.rows(idx, delta)
     if mode == "dedup":
         return scatter_add_dedup(table, idx, delta)
     return scatter_add_direct(table, idx, delta)

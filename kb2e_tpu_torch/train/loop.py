@@ -13,6 +13,15 @@ All randomness — the initial tables and every sampled batch — comes from one
 resume restores it, where ``kb2e_tpu`` replays its key splits.  Given
 ``init_params`` (the TransE warm start of TransR, CTransR and PTransE) the loop starts from those
 tables and its generator draws only the batches.
+
+Given a mesh (``parallel/mesh.py``; ``kb2e_tpu/train/loop.py:99-118``), which
+``cfg.data_axis`` × ``cfg.model_axis`` > 1 requires, every rank seeds the same generator, so all draw the same tables and
+batches; the batch is rounded down to a multiple of the data axis, the
+entity rows are cut over the model axis, and the fast epoch runs through
+``parallel/dist_step.py``.  Parity mode runs on one device only.  Rank 0
+writes the checkpoints, with the full tables; on resume every rank reads the
+file and keeps its rows.  The returned params are the full tables on every
+rank.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.data.triples import TripleSet
 from kb2e_tpu_torch.io import checkpoint as ckpt_lib
 from kb2e_tpu_torch.models.base import Model, Params
+from kb2e_tpu_torch.parallel import mesh as mesh_lib
+from kb2e_tpu_torch.parallel import multihost, sharding
 from kb2e_tpu_torch.train import step as step_lib
 from kb2e_tpu_torch.utils import logging as log_lib
 from kb2e_tpu_torch.utils.device import resolve_device
@@ -47,6 +58,8 @@ def train(
     eval_fn: Optional[Callable[[Params], dict]] = None,
     path_store=None,
     device="cuda",
+    mesh: Optional[mesh_lib.Mesh] = None,
+    after_epoch: Optional[Callable[[int], None]] = None,
 ) -> Params:
     """Train embeddings on ``device``; returns the final params.
 
@@ -56,10 +69,18 @@ def train(
     model's initial tables (they are moved to ``device``).  ``path_store``
     (PTransE's ``data/paths.py::PathStore`` of ``triples``) goes to the
     device with the triples, and every batch then carries its rows' paths.
+    ``mesh`` runs the fast epochs over its ranks (on its device);
+    ``after_epoch(n)`` is called once n epochs are done and checkpointed.
     """
-    dev = resolve_device(device)
+    if mesh is None and mesh_lib.axes_product(cfg.data_axis, cfg.model_axis) > 1:
+        raise ValueError(
+            f"data axis {cfg.data_axis} x model axis {cfg.model_axis} needs a mesh, and none was passed: start one "
+            "process per rank and pass mesh= (parallel/mesh.py::from_torchrun or make_mesh)")
+    dev = resolve_device(device if mesh is None else mesh.device)
     if cfg.update_mode not in ("fast", "parity"):
         raise ValueError(f"update_mode={cfg.update_mode!r}; expected 'fast' or 'parity'")
+    if mesh is not None and cfg.update_mode == "parity":
+        raise NotImplementedError("parity mode runs single-device only")
     if cfg.update_mode == "parity" and not model.has_parity_mode:
         warnings.warn(
             f"--update-mode parity has no effect for {model.name}: no "
@@ -84,8 +105,15 @@ def train(
 
     data = step_lib.DeviceData.from_triple_set(triples, dev, path_store=path_store)
     batch_size = step_lib.batch_size_for(triples.num_triples, cfg.num_batches)
+    if mesh is not None:
+        batch_size -= batch_size % mesh.shape["data"]
+        params = sharding.place_params(mesh, params)
+
+    def full(p: Params) -> Params:
+        return p if mesh is None else sharding.gather_params(mesh, p, triples.n_entities)
+
     if cfg.update_mode == "fast":
-        run_epoch = step_lib.make_epoch_runner(model, cfg, batch_size, cfg.num_batches)
+        run_epoch = step_lib.make_epoch_runner(model, cfg, batch_size, cfg.num_batches, mesh=mesh)
     else:
         run_step = step_lib.make_train_step(model, cfg, batch_size)
 
@@ -114,10 +142,15 @@ def train(
             }
         )
         if checkpoint_dir and checkpoint_every and (epoch + 1) % checkpoint_every == 0:
-            ckpt_lib.save(
-                os.path.join(checkpoint_dir, f"ckpt_{epoch + 1}"), params, step=epoch + 1,
-                extra={"generator_state": generator.get_state()},
-            )
+            tables = full(params)
+            if multihost.process_index() == 0:
+                ckpt_lib.save(
+                    os.path.join(checkpoint_dir, f"ckpt_{epoch + 1}"), tables, step=epoch + 1,
+                    extra={"generator_state": generator.get_state()},
+                )
+            multihost.barrier()
+        if after_epoch is not None:
+            after_epoch(epoch + 1)
         if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
             val = eval_fn(params)
             print(
@@ -125,4 +158,4 @@ def train(
                 f"filtered Hits@10 {val.get('filtered_hits10', float('nan')):.3f}"
             )
             logger.log({"epoch": epoch, **{f"valid_{k}": v for k, v in val.items()}})
-    return params
+    return full(params)

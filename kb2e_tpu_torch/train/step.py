@@ -10,9 +10,12 @@ Where ``kb2e_tpu`` jit-compiles a step and runs a whole epoch as one
 ``lax.scan``, the port runs eagerly: the epoch runner samples the whole
 epoch in one call, then applies its batches in order in a Python loop.
 For the chunk-sequential models (TransR) the epoch is cut into chunk-sized
-mini-batches instead, as ``kb2e_tpu`` cuts it.  The mesh and the segment
-launches of the chunked epoch (a workaround for a TPU backend fault) are not
-ported.
+mini-batches instead, as ``kb2e_tpu`` cuts it.  Given a mesh
+(``parallel/mesh.py``), the runner applies each batch through
+``parallel/dist_step.py``: every rank draws the whole epoch, scores its share
+of each batch, and the row deltas are gathered over the data axis.  The
+segment launches of the chunked epoch (a workaround for a TPU backend fault)
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Method
 from kb2e_tpu_torch.data.triples import TripleSet
 from kb2e_tpu_torch.models.base import Batch, Model, Params, pad_to_chunks
+from kb2e_tpu_torch.parallel import dist_step
 from kb2e_tpu_torch.sampling import corruption, cuckoo
 
 
@@ -170,20 +174,31 @@ class EpochRunner:
     chunk-sequential update, so the epoch's samples are padded with invalid
     slots to whole chunks and applied chunk by chunk
     (``kb2e_tpu/train/step.py:302-355``).  Returns (params, epoch loss).
+
+    With ``mesh`` (``parallel/mesh.py``) the runner is never fused (as in the
+    JAX package), the batch must divide by the data axis, the chunk is
+    rounded down to a multiple of it, and each batch or chunk goes through
+    ``parallel/dist_step.py::distributed_update``; the params it takes and
+    returns hold this rank's entity rows.
     """
 
     def __init__(self, model: Model, cfg: EmbeddingConfig, batch_size: int, num_batches: int,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, mesh=None):
         if fused is None:
-            fused = model.supports_fused_table
+            fused = mesh is None and model.supports_fused_table
         elif fused and not model.supports_fused_table:
             raise ValueError(f"model {model.name} has no fused-table update")
-        self.model, self.cfg, self.fused = model, cfg, fused
+        elif fused and mesh is not None:
+            raise ValueError("the fused-table epoch runner is single-device only")
+        d = 1 if mesh is None else mesh.shape["data"]
+        if batch_size % d:
+            raise ValueError(f"batch_size {batch_size} not divisible by data axis {d}")
+        self.model, self.cfg, self.fused, self.mesh = model, cfg, fused, mesh
         self.batch_size, self.num_batches = batch_size, num_batches
         # K > 1 negatives flatten each batch to batch_size*K pair rows.
         self.rows = batch_size * max(1, cfg.num_negatives)
         # Never coarser than the configured batch.
-        self.chunk = min(model.chunk_size, self.rows) if model.chunk_size is not None and not fused else None
+        self.chunk = None if fused else dist_step.chunk_rows(model, self.rows, d)
 
     def sample(self, generator: torch.Generator, data: DeviceData) -> Batch:
         """Every batch of the epoch, each tensor shaped [num_batches, rows],
@@ -195,6 +210,8 @@ class EpochRunner:
 
     def apply(self, params: Params, batches: Batch, n_entities: int) -> Tuple[Params, torch.Tensor]:
         """Apply [n, rows] batches in order; returns (params, loss sum)."""
+        if self.mesh is not None:
+            return dist_step.apply_batches(self.model, self.cfg, self.mesh, params, batches, n_entities)
         n_batches = next(iter(batches.values())).shape[0]
         losses = []
         if self.fused:
@@ -216,5 +233,5 @@ class EpochRunner:
 
 
 def make_epoch_runner(model: Model, cfg: EmbeddingConfig, batch_size: int, num_batches: int,
-                      fused: Optional[bool] = None) -> EpochRunner:
-    return EpochRunner(model, cfg, batch_size, num_batches, fused=fused)
+                      fused: Optional[bool] = None, mesh=None) -> EpochRunner:
+    return EpochRunner(model, cfg, batch_size, num_batches, fused=fused, mesh=mesh)

@@ -21,6 +21,7 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import get_model
 from kb2e_tpu_torch.ops import distances, rank_count, schedule, transe_update, transh_update, transr_update
+from kb2e_tpu_torch.parallel import eval as par_eval
 
 pytestmark = pytest.mark.cuda
 
@@ -660,3 +661,16 @@ def test_ptranse_update_on_the_card_equals_the_cpu(cuda, comp):
     for key in want:
         assert torch.allclose(got[key].cpu(), want[key], rtol=0, atol=1e-5), key
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+
+
+@pytest.mark.parametrize("first", [0, 7476, 4096, 3])
+def test_block_squared_norms_of_a_shard_have_the_whole_tables_bits(cuda, first):
+    """The sharded eval's L2 norms: an entity shard's ‖e‖² equal the whole
+    table's to the bit on unrounded values, wherever the shard starts."""
+    rng = np.random.default_rng(first)
+    table = rank_count.aligned_transpose(torch.from_numpy(rng.normal(size=(14951, 100)).astype(np.float32)).to(cuda))
+    whole = distances.squared_norms(table)
+    shard = rank_count.aligned_transpose(table.T[first:first + 7475].contiguous())
+    got = par_eval.shard_squared_norms(shard, first, 14951)
+    assert torch.equal(got, whole[first:first + 7475])
+    torch.testing.assert_close(got, distances.squared_norms(shard), rtol=1e-6, atol=0)
