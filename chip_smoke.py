@@ -125,23 +125,32 @@ non-zero exit on any failure:
 5. distributed — the port's ``parallel/`` package on the card, after the
               main paths, on the same FB15k-shaped directory:
               (a) the entity-sharded eval, 2 ranks on cuda:0 over gloo
-              (NCCL refuses two ranks on one device), model axis 2, for
-              the seeded TransE files at ``--distance 0`` and ``1`` and the
-              TransR files at L1: each rank's ranks equal the one-rank
-              harness's exactly, with one rank-count launch per batch on
-              each rank (462 a TransE eval, 1,345 a TransR eval; they add
-              to the kernel records' launches), and each rank's first
-              N_CHECK counts agree with the plain version on that rank's
-              inputs (its shard, its ‖e‖², the shifted true index);
+              (NCCL refuses two ranks on one device), model axis 2, from
+              tables placed as the mesh cuts them (entity rows, and
+              TransR's and CTransR's per-relation tables on the relation
+              axis; each rank fetches a group's W_r from its owner): the
+              seeded TransE files at ``--distance 0`` and ``1``, the TransR
+              files (W = I) at L1 and L2, the TransR files with a seeded
+              non-dyadic W at L1 and L2 and seeded dyadic CTransR tables at
+              L1 and L2 (these four on the test triples of the first
+              relations): each rank's ranks equal the one-rank harness's
+              exactly, with one rank-count launch per batch on each rank
+              (462 a TransE eval, 1,345 a TransR eval; they add to the
+              kernel records' launches; none for CTransR), and each rank's
+              first N_CHECK counts agree with the plain version on that
+              rank's inputs (its shard, its ‖e‖², the shifted true index);
               (b) data-parallel TransE fast training, 2 ranks on cuda:0
               over gloo, data axis 2, bench.py's configuration (the batch
               rounded down to 4,830) for one epoch: after the first batch
               the tables within atol 2e-6 of the single-rank runner's and
               the loss within rel 1e-5 (the JAX package's bounds), and the
-              epoch's largest difference printed;
+              epoch's largest difference printed; then TransR and CTransR
+              (warm-started from the TransE files) at mesh (1, 2) for
+              CUT_CHUNKS chunks of 256, each rank's cut of the tables held
+              to the same bounds after the first chunk;
               (c) ``parallel/multiprocess.py`` at 1 process over NCCL, 2
-              epochs with ``--eval-out``: its metrics equal
-              ``harness.evaluate`` on the tables it wrote.
+              epochs of TransE and 1 of TransR with ``--eval-out``: its
+              metrics equal ``harness.evaluate`` on the tables it wrote.
               Each part's processes are killed after DIST_DEADLINE_S;
               their walls are printed beside the card's name and power limit;
 6. timing   — per kernel at the main path's shapes: the kernel, the plain
@@ -1261,26 +1270,33 @@ def first_relations_test(dataset):
     return th[sel], tt[sel], tr[sel]
 
 
-def routed_ranks_check(model, dataset, subset):
-    """Seeded dyadic CTransR tables at FB15k's width (multiples of 1/8: every
-    product and sum of the projection, the routing and both energies is
-    exact): the routed ranks of ``subset`` (``first_relations_test``: at
-    least N_CHECK queries, the first groups of the harness's order), on the
-    card in batches of 256 and on the CPU (``rank_queries_clustered``
-    through ``rank_all``, batches of 32), for each distance: equal, raw and
-    filtered."""
-    from kb2e_tpu_torch import EmbeddingConfig
-    from kb2e_tpu_torch.constants import Distance
-    from kb2e_tpu_torch.eval import harness
+def dyadic_ctransr_tables():
+    """Seeded dyadic CTransR tables at FB15k's width, on the host (multiples
+    of 1/8: every product and sum of the projection, the routing and both
+    energies is exact)."""
+    from kb2e_tpu_torch import get_model
 
     rng = np.random.default_rng(SEED + 2)
 
     def dy(shape, scale):
         return torch.from_numpy(np.clip(np.round(rng.normal(size=shape) * scale) / 8, -1, 1).astype(np.float32))
 
-    c = model.n_clusters
-    host = dict(entity=dy((N_ENTITIES, K), 2), relation=dy((N_RELATIONS, K), 2), proj=dy((N_RELATIONS, K, K), 1),
+    c = get_model("ctransr").n_clusters
+    return dict(entity=dy((N_ENTITIES, K), 2), relation=dy((N_RELATIONS, K), 2), proj=dy((N_RELATIONS, K, K), 1),
                 relation_c=dy((N_RELATIONS, c, K), 2), centers=dy((N_RELATIONS, c, K), 2))
+
+
+def routed_ranks_check(model, dataset, subset):
+    """``dyadic_ctransr_tables``: the routed ranks of ``subset``
+    (``first_relations_test``: at least N_CHECK queries, the first groups of
+    the harness's order), on the card in batches of 256 and on the CPU
+    (``rank_queries_clustered`` through ``rank_all``, batches of 32), for
+    each distance: equal, raw and filtered."""
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.eval import harness
+
+    host = dyadic_ctransr_tables()
     r_cut = int(subset[2].max()) + 1
     for distance in (Distance.L1, Distance.L2):
         cfg = EmbeddingConfig(embedding_size=K, distance=distance)
@@ -1573,30 +1589,99 @@ def mechanism_path():
 # host); part (c) runs the production driver alone, over NCCL.
 DIST_WORLD = 2
 DIST_DEADLINE_S = 300  # a part's processes are killed after this
-# Part (a): (what, model, files, distance) of each sharded eval.
-DIST_EVALS = (("eval_transe L1", "transe", "out", 0), ("eval_transe L2", "transe", "out", 1),
-              ("eval_transr L1", "transr", "out_transr", 0))
+# Part (a): (what, model, tables, distance, subset) of each sharded eval.
+# Tables: the data phase's files ("out", "out_transr": W = I), the TransR
+# files with a seeded non-dyadic W ("transr W"), seeded dyadic CTransR tables
+# ("ctransr"); subset: the test triples of the first relations
+# (first_relations_test), else all.
+DIST_EVALS = (("eval_transe L1", "transe", "out", 0, False), ("eval_transe L2", "transe", "out", 1, False),
+              ("eval_transr L1", "transr", "out_transr", 0, False),
+              ("eval_transr L2", "transr", "out_transr", 1, False),
+              ("eval_transr L1, non-dyadic W", "transr", "transr W", 0, True),
+              ("eval_transr L2, non-dyadic W", "transr", "transr W", 1, True),
+              ("eval_ctransr L1", "ctransr", "ctransr", 0, True), ("eval_ctransr L2", "ctransr", "ctransr", 1, True))
 DIST_ATOL, DIST_LOSS_RTOL = 2e-6, 1e-5  # tests/test_parallel.py:73-78
+# Part (b): the models whose per-relation tables are cut over ``model``,
+# trained at mesh (1, 2) for the first chunk, then the next ones up to
+# CUT_CHUNKS (256 samples each: some 3 of bench.py's batches).
+CUT_MODELS = ("transr", "ctransr")
+CUT_CHUNKS = 57
 
 
-def dist_inputs(data_dir: str, dev):
-    """Part (b)'s inputs, the same in every process: bench.py's
-    configuration with the batch rounded down to the data axis, seeded
-    TransE-init tables, and the epoch's 100 batches drawn on the card."""
-    from kb2e_tpu_torch import EmbeddingConfig, get_model
-    from kb2e_tpu_torch.constants import Distance, Method
+def dist_tables(model_name: str, source: str, work: str):
+    """Part (a)'s whole tables from ``source`` (DIST_EVALS), on the card, the
+    same in every process."""
+    if source == "ctransr":
+        return {k: v.cuda() for k, v in dyadic_ctransr_tables().items()}
+    if source in ("out", "out_transr"):
+        return read_params(model_name, os.path.join(work, source))
+    params = read_params("transr", os.path.join(work, "out_transr"))
+    w = np.random.default_rng(SEED + 5).standard_normal((N_RELATIONS, K, K), dtype=np.float32) / 10
+    return {**params, "proj": torch.from_numpy(w).cuda()}
+
+
+def dist_data(data_dir: str, dev):
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.train import step
 
     ts = triples.load_dataset(data_dir, splits=("train",)).train
-    data = step.DeviceData.from_triple_set(ts, dev)
-    cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=Method.BERN,
-                          distance=Distance.L1, num_batches=N_BATCHES, seed=SEED)
+    return ts, step.DeviceData.from_triple_set(ts, dev)
+
+
+def dist_cfg():
+    from kb2e_tpu_torch import EmbeddingConfig
+    from kb2e_tpu_torch.constants import Distance, Method
+
+    return EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=Method.BERN,
+                           distance=Distance.L1, num_batches=N_BATCHES, seed=SEED)
+
+
+def dist_inputs(data, dev):
+    """Part (b)'s TransE inputs, the same in every process: bench.py's
+    configuration with the batch rounded down to the data axis, seeded
+    TransE-init tables, and the epoch's 100 batches drawn on the card."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.train import step
+
+    cfg = dist_cfg()
     batch = TRAIN_BATCH - TRAIN_BATCH % DIST_WORLD
     model = get_model("transe")
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED), N_ENTITIES, N_RELATIONS, cfg, dev)
     runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
     return model, cfg, batch, params, runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
+
+
+def write_cut_inputs(work: str, ts):
+    """Part (b)'s TransR and CTransR tables, warm-started as their smoke
+    paths are (``cli/train.py::_maybe_warm_start`` from the data phase's
+    TransE files; CTransR's centers by ``build_centers``), written once to
+    ``work/dist_<model>.npz`` for every process; returns build_centers'
+    seconds."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.cli import train as train_cli
+
+    cfg = dist_cfg().replace(seed_data_dir=os.path.join(work, "out"), seed_method=1)
+    seconds = {}
+    for model_name in CUT_MODELS:
+        t0 = time.perf_counter()
+        params = train_cli._maybe_warm_start(get_model(model_name), cfg, ts, torch.device("cuda"))
+        seconds[model_name] = time.perf_counter() - t0
+        np.savez(os.path.join(work, f"dist_{model_name}.npz"), **{k: v.cpu().numpy() for k, v in params.items()})
+    return seconds
+
+
+def cut_inputs(model_name: str, work: str, data, dev):
+    """(model, params, the first CUT_CHUNKS chunks) of a CUT_MODELS run, the
+    same in every process: ``write_cut_inputs``' tables and the chunked
+    epoch drawn on the card."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.train import step
+
+    model = get_model(model_name)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in np.load(os.path.join(work, f"dist_{model_name}.npz")).items()}
+    runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, fused=False)
+    chunks = runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
+    return model, params, {k: v[:CUT_CHUNKS] for k, v in chunks.items()}
 
 
 def dist_rank(part: str, rank: int, port: int, work: str) -> None:
@@ -1623,6 +1708,7 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
     if part == "eval":
         mesh = mesh_lib.make_mesh(1, DIST_WORLD, device=dev)
         dataset = triples.load_dataset(os.path.join(work, "data"), splits=("train", "valid", "test"))
+        subset = first_relations_test(dataset)
         counts, kept = rank_count.rank_counts, []
 
         def keeping_counts(*args, **kwargs):
@@ -1636,33 +1722,39 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
 
         rank_count.rank_counts = keeping_counts
         try:
-            for what, model_name, files, flag in DIST_EVALS:
-                params = read_params(model_name, os.path.join(work, files))
+            for what, model_name, source, flag, on_subset in DIST_EVALS:
+                # Placed: this rank's entity rows and relations of the cut tables.
+                params = sharding.place_params(mesh, dist_tables(model_name, source, work))
                 cfg = EmbeddingConfig(embedding_size=K, distance=Distance(flag))
                 kept.clear()
                 reset_all_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                raw, filt, sizes = harness.rank_all(get_model(model_name), params, dataset, cfg, mesh=mesh)
+                raw, filt, sizes = harness.rank_all(get_model(model_name), params, dataset, cfg, mesh=mesh,
+                                                    test_triples=subset if on_subset else None)
                 wall = time.perf_counter() - t0
                 launches = all_launch_counts()
-                # K1/K2 against the plain version on this rank's inputs:
-                # its shard of the table, its ‖e‖², the true index shifted
-                # by -row0 (negative or past the shard where another rank
-                # owns the true entity).
-                true_idx = torch.cat([args[3] for args, _, _ in kept])
-                n_local = kept[0][0][0].shape[1]
-                got[what] = dict(raw=raw, filt=filt, sizes=sizes, launches=launches, wall=wall,
-                                 rows=mesh.entity_rows(N_ENTITIES),
-                                 kernel=torch.cat([out for _, _, out in kept]).cpu().numpy(),
-                                 plain=torch.cat([rank_count.rank_counts_reference(*args, **kwargs)
-                                                  for args, kwargs, _ in kept]).cpu().numpy(),
-                                 outside=int(((true_idx < 0) | (true_idx >= n_local)).sum()))
+                ev = dict(raw=raw, filt=filt, sizes=sizes, launches=launches, wall=wall,
+                          rows=mesh.entity_rows(N_ENTITIES), relations=mesh.relation_rows(N_RELATIONS),
+                          held={k: params[k].nbytes for k in sharding.RELATION_KEYS if k in params})
+                if kept:
+                    # K1/K2 against the plain version on this rank's inputs:
+                    # its shard of the table, its ‖e‖², the true index shifted
+                    # by -row0 (negative or past the shard where another rank
+                    # owns the true entity).
+                    true_idx = torch.cat([args[3] for args, _, _ in kept])
+                    n_local = kept[0][0][0].shape[1]
+                    ev.update(kernel=torch.cat([out for _, _, out in kept]).cpu().numpy(),
+                              plain=torch.cat([rank_count.rank_counts_reference(*args, **kwargs)
+                                               for args, kwargs, _ in kept]).cpu().numpy(),
+                              outside=int(((true_idx < 0) | (true_idx >= n_local)).sum()))
+                got[what] = ev
         finally:
             rank_count.rank_counts = counts
     else:
+        _, data = dist_data(os.path.join(work, "data"), dev)
         mesh = mesh_lib.make_mesh(DIST_WORLD, 1, device=dev)
-        model, cfg, batch, params, batches = dist_inputs(os.path.join(work, "data"), dev)
+        model, cfg, batch, params, batches = dist_inputs(data, dev)
         runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, mesh=mesh)
         params = sharding.place_params(mesh, params)
         walls = []
@@ -1673,6 +1765,23 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
             got[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
             walls.append(time.perf_counter() - t0)
         got["walls"] = walls
+        # TransR and CTransR at mesh (1, 2): entity rows and the per-relation
+        # tables cut; each rank keeps its cut of the tables it returns.
+        mesh = mesh_lib.make_mesh(1, DIST_WORLD, device=dev)
+        for model_name in CUT_MODELS:
+            model, params, chunks = cut_inputs(model_name, work, data, dev)
+            runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, mesh=mesh)
+            params = sharding.place_params(mesh, params)
+            walls = []
+            for sl in (slice(0, 1), slice(1, None)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, loss = runner.apply(params, {k: v[sl] for k, v in chunks.items()}, N_ENTITIES)
+                got[model_name, sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+                walls.append(time.perf_counter() - t0)
+            got[model_name, "walls"] = walls
+            got[model_name, "cut"] = dict(rows=mesh.entity_rows(N_ENTITIES), relations=mesh.relation_rows(N_RELATIONS),
+                                          held=params["proj"].nbytes)
     with open(os.path.join(work, f"{part}.rank{rank}"), "wb") as f:
         pickle.dump(got, f)
     multihost.barrier()
@@ -1726,66 +1835,148 @@ def dist_part(part: str, work: str):
     return out
 
 
-def distributed_phase(work: str):
-    """(a) the entity-sharded eval, 2 ranks, model axis 2, against the
-    one-rank harness, each rank's rank counts against the plain version;
-    (b) data-parallel TransE training, 2 ranks, data axis 2, against the
-    single-rank runner; (c) ``parallel/multiprocess.py`` at 1 process over
-    NCCL against ``harness.evaluate`` of its written tables."""
+def mb(n_bytes: int) -> str:
+    return f"{n_bytes / 1e6:.1f} MB"
+
+
+def sharded_evals(work: str, dataset, card: str, results: dict):
+    """Part (a): each sharded eval of DIST_EVALS on both ranks against the
+    one-rank harness on the same whole tables; every difference is listed
+    before the part fails."""
     from kb2e_tpu_torch import EmbeddingConfig, get_model
     from kb2e_tpu_torch.constants import Distance
-    from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
     from kb2e_tpu_torch.ops import rank_count
+
+    t0 = time.perf_counter()
+    ranks = dist_part("eval", work)
+    wall_a = time.perf_counter() - t0
+    subset, bad = first_relations_test(dataset), []
+    for what, model_name, source, flag, on_subset in DIST_EVALS:
+        model, distance = get_model(model_name), Distance(flag)
+        params = dist_tables(model_name, source, work)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K, distance=distance),
+                                            test_triples=subset if on_subset else None)
+        one_wall = time.perf_counter() - t1
+        name = None if model.cluster_aware else rank_count.KERNEL_NAMES[model.effective_distance(distance)]
+        parts = []
+        for r, got in enumerate(ranks):
+            ev = got[what]
+            n_raw, n_filt = int((ev["raw"] != raw).sum()), int((ev["filt"] != filt).sum())
+            if n_raw or n_filt or ev["sizes"] != sizes:
+                bad.append(f"{what} rank {r}: sharded ranks differ from the one-rank harness's in {n_raw} raw and "
+                           f"{n_filt} filtered places of {raw.shape[0]}")
+            want_launches = {} if name is None else {name: len(sizes)}
+            check(ev["launches"] == want_launches,
+                  f"{what} rank {r}: launches {ev['launches']}, expected {want_launches}")
+            line = f"rank {r} rows {ev['rows'][0]}:{ev['rows'][1]}"
+            if ev["held"]:
+                line += (f", relations {ev['relations'][0]}:{ev['relations'][1]} holding "
+                         + ", ".join(f"{k} {mb(n)} of {mb(params[k].nbytes)}" for k, n in ev["held"].items()))
+            line += f", rank_all {ev['wall']:.3f} s"
+            if name is not None:
+                check(ev["plain"].shape[0] == N_CHECK, f"{what} rank {r}: {ev['plain'].shape[0]} queries checked")
+                ev["n_off"], ev["max_off"] = compare(
+                    torch.from_numpy(ev["kernel"]), torch.from_numpy(ev["plain"]), False,
+                    f"sharded {what} rank {r}, first {N_CHECK} queries against the plain version on the shard's "
+                    "inputs")
+                results["evals"].append(dict(kernel=name, launches=len(sizes), max_off=ev["max_off"],
+                                             what=f"sharded {what} rank {r}"))
+                line += (f", {ev['launches'][name]} launches of {name}, first {N_CHECK} counts against the plain "
+                         f"version on the shard's inputs: {ev['n_off']} off (max {ev['max_off']}), {ev['outside']} "
+                         "with the true entity outside the shard")
+            else:
+                line += ", no kernel launch (the routed sweep)"
+            parts.append(line)
+        m = harness.metrics_from_ranks(raw, filt, sizes)
+        scope = (f"the {raw.shape[0]} queries of relations 0-{int(subset[2].max())}" if on_subset
+                 else f"{2 * N_TEST} queries")
+        print(f"[distributed] (a) {card}: sharded {what}, model axis {DIST_WORLD}, gloo on cuda:0, {scope}: "
+              + "; ".join(parts) + f"; one rank {one_wall:.3f} s; "
+              + ("ranks equal exactly" if not any(b.startswith(what + " rank") for b in bad) else "RANKS DIFFER")
+              + f" (filtered MR {m['filtered_mean_rank']:.6f}, Hits@10 {m['filtered_hits10']:.6f})", flush=True)
+    check(not bad, "\n".join(bad))
+    print(f"[distributed] (a) {card}: wall {wall_a:.1f} s (two processes: start, loading, {len(DIST_EVALS)} evals)",
+          flush=True)
+    return wall_a
+
+
+def cut_training(work: str, ts, data, ranks, card: str):
+    """Part (b)'s TransR and CTransR at mesh (1, 2) against the one-rank
+    runner: after the first chunk each rank's cut of every table within
+    DIST_ATOL and the loss within DIST_LOSS_RTOL; after CUT_CHUNKS the
+    largest difference printed."""
+    from kb2e_tpu_torch.train import step
+
+    for model_name in CUT_MODELS:
+        model, params, chunks = cut_inputs(model_name, work, data, torch.device("cuda"))
+        runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, fused=False)
+        want, one_walls = {}, []
+        for sl in (slice(0, 1), slice(1, None)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, loss = runner.apply(params, {k: v[sl] for k, v in chunks.items()}, N_ENTITIES)
+            want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+            one_walls.append(time.perf_counter() - t1)
+        for r, got in enumerate(ranks):
+            cut = got[model_name, "cut"]
+            bounds = {key: cut["relations"] for key in ("proj", "relation_c", "centers")}
+            bounds["entity"] = cut["rows"]
+
+            def diff(at):
+                tables, ref = got[model_name, at][0], want[at][0]
+                return max(float(np.abs(v - ref[k][slice(*bounds.get(k, (0, None)))]).max()) for k, v in tables.items())
+
+            first, end = diff(0), diff(1)
+            check(first <= DIST_ATOL, f"(b) {model_name} rank {r}: the first chunk's tables differ by {first:.3e} > "
+                                      f"{DIST_ATOL}")
+            check(abs(got[model_name, 0][1] - want[0][1]) <= DIST_LOSS_RTOL * abs(want[0][1]),
+                  f"(b) {model_name} rank {r}: first-chunk loss {got[model_name, 0][1]!r} against {want[0][1]!r}")
+            walls = got[model_name, "walls"]
+            print(f"[distributed] (b) {card}: train_{model_name} at mesh (1, 2), gloo on cuda:0, bench.py's "
+                  f"configuration, chunks of 256 (warm-started from the TransE files): rank {r} holds entity rows "
+                  f"{cut['rows'][0]}:{cut['rows'][1]} and relations {cut['relations'][0]}:{cut['relations'][1]}, "
+                  f"proj {mb(cut['held'])} of {mb(want[0][0]['proj'].nbytes)}; first chunk max |diff| {first:.3e} "
+                  f"(bound {DIST_ATOL}), loss {got[model_name, 0][1]:.6f} against {want[0][1]:.6f}; after "
+                  f"{CUT_CHUNKS} chunks max |diff| {end:.3e}, loss {got[model_name, 0][1] + got[model_name, 1][1]:.6f} "
+                  f"against {want[0][1] + want[1][1]:.6f}; walls: first chunk {walls[0]:.3f} s, the other "
+                  f"{CUT_CHUNKS - 1} {walls[1]:.3f} s (one rank: {one_walls[0]:.3f} s, {one_walls[1]:.3f} s)",
+                  flush=True)
+
+
+def distributed_phase(work: str):
+    """(a) the entity-sharded eval, 2 ranks, model axis 2, against the
+    one-rank harness, each rank's rank counts against the plain version,
+    from tables placed as the mesh cuts them (TransR's and CTransR's
+    per-relation tables on the relation axis); (b) data-parallel TransE
+    training, 2 ranks, data axis 2, and TransR and CTransR at mesh (1, 2),
+    against the single-rank runner; (c) ``parallel/multiprocess.py`` at 1
+    process over NCCL (TransE, then TransR) against ``harness.evaluate`` of
+    its written tables."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
     from kb2e_tpu_torch.train import step
 
     card = card_line()
     data_dir = os.path.join(work, "data")
     results = {"evals": []}
+    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
 
     # (a) the sharded eval.
-    t0 = time.perf_counter()
-    ranks = dist_part("eval", work)
-    wall_a = time.perf_counter() - t0
-    dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
-    for what, model_name, files, flag in DIST_EVALS:
-        model, distance = get_model(model_name), Distance(flag)
-        params = read_params(model_name, os.path.join(work, files))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K, distance=distance))
-        one_wall = time.perf_counter() - t1
-        name = rank_count.KERNEL_NAMES[model.effective_distance(distance)]
-        for r, got in enumerate(ranks):
-            ev = got[what]
-            check(np.array_equal(ev["raw"], raw) and np.array_equal(ev["filt"], filt) and ev["sizes"] == sizes,
-                  f"{what} rank {r}: sharded ranks differ from the one-rank harness's in "
-                  f"{int((ev['raw'] != raw).sum())} raw and {int((ev['filt'] != filt).sum())} filtered places")
-            check(ev["launches"] == {name: len(sizes)},
-                  f"{what} rank {r}: launches {ev['launches']}, expected {{{name!r}: {len(sizes)}}}")
-            check(ev["plain"].shape[0] == N_CHECK, f"{what} rank {r}: {ev['plain'].shape[0]} queries checked")
-            ev["n_off"], ev["max_off"] = compare(
-                torch.from_numpy(ev["kernel"]), torch.from_numpy(ev["plain"]), False,
-                f"sharded {what} rank {r}, first {N_CHECK} queries against the plain version on the shard's inputs")
-            results["evals"].append(dict(kernel=name, launches=len(sizes), max_off=ev["max_off"],
-                                         what=f"sharded {what} rank {r}"))
-        m = harness.metrics_from_ranks(raw, filt, sizes)
-        print(f"[distributed] (a) {card}: sharded {what}, model axis {DIST_WORLD}, gloo on cuda:0: "
-              + "; ".join(f"rank {r} rows {got[what]['rows'][0]}:{got[what]['rows'][1]}, "
-                          f"{got[what]['launches'][name]} launches of {name}, rank_all {got[what]['wall']:.3f} s, "
-                          f"first {N_CHECK} counts against the plain version on the shard's inputs: "
-                          f"{got[what]['n_off']} off (max {got[what]['max_off']}), {got[what]['outside']} with the "
-                          "true entity outside the shard"
-                          for r, got in enumerate(ranks))
-              + f"; one rank {one_wall:.3f} s; {2 * N_TEST} ranks equal exactly (filtered MR "
-              f"{m['filtered_mean_rank']:.6f}, Hits@10 {m['filtered_hits10']:.6f})", flush=True)
-    print(f"[distributed] (a) {card}: wall {wall_a:.1f} s (two processes: start, loading, three evals)", flush=True)
+    wall_a = sharded_evals(work, dataset, card, results)
 
-    # (b) data-parallel training.
+    # (b) distributed training.
+    t0 = time.perf_counter()
+    ts, data = dist_data(data_dir, torch.device("cuda"))
+    warm = write_cut_inputs(work, ts)
+    prep_b = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = dist_part("train", work)
     wall_b = time.perf_counter() - t0
-    model, cfg, batch, params, batches = dist_inputs(data_dir, torch.device("cuda"))
+    model, cfg, batch, params, batches = dist_inputs(data, torch.device("cuda"))
     runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
     want, one_walls = {}, []
     for sl in (slice(0, 1), slice(1, None)):
@@ -1807,30 +1998,39 @@ def distributed_phase(work: str):
               f"{end:.3e}, epoch loss {loss_end:.6f} against {want[0][1] + want[1][1]:.6f}; walls: first batch "
               f"{got['walls'][0]:.3f} s, the other 99 {got['walls'][1]:.3f} s (one rank: {one_walls[0]:.3f} s, "
               f"{one_walls[1]:.3f} s)", flush=True)
+    cut_training(work, ts, data, ranks, card)
     print(f"[distributed] (b) {card}: wall {wall_b:.1f} s (two processes: start, loading, the cuckoo build, "
-          "one epoch)", flush=True)
+          f"TransE's epoch, TransR's and CTransR's {CUT_CHUNKS} chunks), after {prep_b:.1f} s here for the data, "
+          "the warm starts (" + ", ".join(f"{k} {v:.1f} s" for k, v in warm.items()) + ", CTransR's with "
+          "build_centers) and their files", flush=True)
 
-    # (c) the production driver alone over NCCL.
-    out_npz, eval_out = (os.path.join(work, name) for name in ("driver.npz", "driver_eval.json"))
-    t0 = time.perf_counter()
-    log = run_processes([[sys.executable, "-m", "kb2e_tpu_torch.parallel.multiprocess", "--coordinator",
-                          f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0", "--model", "transe",
-                          "--datadir", data_dir, *TRAIN_FLAGS, "--epochs", "2",
-                          "--device", "cuda", "--out-npz", out_npz, "--eval-out", eval_out]], work, "driver")[0]
-    wall_c = time.perf_counter() - t0
-    check("backend nccl" in log, "the driver did not run over NCCL:\n" + log[-2000:])
-    with open(eval_out, encoding="utf-8") as f:
-        driver_metrics = json.load(f)
-    tables = {k: torch.from_numpy(v).cuda() for k, v in np.load(out_npz).items()}
-    want_metrics = harness.evaluate(get_model("transe"), tables, dataset, EmbeddingConfig(embedding_size=K))
-    check(driver_metrics == want_metrics, f"(c) the driver's metrics {driver_metrics} differ from evaluate's "
-          f"{want_metrics}")
-    epochs = [line for line in log.splitlines() if line.startswith("Epoch:")]
-    print(f"[distributed] (c) {card}: parallel/multiprocess.py, 1 process over NCCL, 2 epochs + --eval-out: "
-          f"{'; '.join(epochs)}; metrics equal harness.evaluate's on its tables (filtered MR "
-          f"{want_metrics['filtered_mean_rank']:.6f}); wall {wall_c:.1f} s (start, loading, training, eval)",
+    # (c) the production driver alone over NCCL: TransE, then TransR.
+    walls_c = []
+    for model_name, epochs in (("transe", 2), ("transr", 1)):
+        out_npz, eval_out = (os.path.join(work, f"driver_{model_name}{ext}") for ext in (".npz", ".json"))
+        t0 = time.perf_counter()
+        log = run_processes([[sys.executable, "-m", "kb2e_tpu_torch.parallel.multiprocess", "--coordinator",
+                              f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0", "--model",
+                              model_name, "--datadir", data_dir, *TRAIN_FLAGS, "--epochs", str(epochs),
+                              "--device", "cuda", "--out-npz", out_npz, "--eval-out", eval_out]],
+                            work, f"driver_{model_name}")[0]
+        walls_c.append(time.perf_counter() - t0)
+        check("backend nccl" in log, "the driver did not run over NCCL:\n" + log[-2000:])
+        with open(eval_out, encoding="utf-8") as f:
+            driver_metrics = json.load(f)
+        tables = {k: torch.from_numpy(v).cuda() for k, v in np.load(out_npz).items()}
+        want_metrics = harness.evaluate(get_model(model_name), tables, dataset, EmbeddingConfig(embedding_size=K))
+        check(driver_metrics == want_metrics, f"(c) the {model_name} driver's metrics {driver_metrics} differ from "
+              f"evaluate's {want_metrics}")
+        epochs_seen = [line for line in log.splitlines() if line.startswith("Epoch:")]
+        print(f"[distributed] (c) {card}: parallel/multiprocess.py --model {model_name}, 1 process over NCCL, "
+              f"{epochs} epoch(s) + --eval-out: {'; '.join(epochs_seen)}; metrics equal harness.evaluate's on its "
+              f"tables (filtered MR {want_metrics['filtered_mean_rank']:.6f}); wall {walls_c[-1]:.1f} s (start, "
+              "loading, training, eval)", flush=True)
+    print(f"[distributed] (c) {card}: --model transr runs at model axis 1 only here: a model axis of 2 needs two "
+          "processes, and NCCL refuses two ranks on one card (D26); parts (a) and (b) cut TransR over gloo instead",
           flush=True)
-    results["walls"] = (wall_a, wall_b, wall_c)
+    results["walls"] = (wall_a, wall_b, sum(walls_c))
     return results
 
 

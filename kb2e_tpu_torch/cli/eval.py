@@ -9,12 +9,20 @@ each test triple's relation among all R instead and prints the two
 The port evaluates TransE, TransH, TransR, CTransR and PTransE in both tasks.
 PTransE's relation task adds path evidence: the PCRA store of the test pairs
 over the train graph (``data/paths.py``).
+
+Under ``torchrun`` with ``--data-axis`` × ``--model-axis`` above 1 the
+entity task runs on the (data, model) mesh: the entity rows (and TransR's
+and CTransR's per-relation tables) cut over ``model``, every rank printing
+the one-rank lines.  Without ``torchrun`` those flags raise; the JAX eval CLI
+ignores them.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+
+import torch
 
 from kb2e_tpu_torch import constants as C
 from kb2e_tpu_torch.cli import common
@@ -25,10 +33,36 @@ from kb2e_tpu_torch.data import triples as data_lib
 from kb2e_tpu_torch.eval import harness
 from kb2e_tpu_torch.io import text as text_io
 from kb2e_tpu_torch.models import base as model_base
+from kb2e_tpu_torch.parallel import mesh as mesh_lib
+from kb2e_tpu_torch.parallel import multihost, sharding
 from kb2e_tpu_torch.utils.device import resolve_device
 
 
 def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device="cuda", task: str = "entity") -> dict:
+    """Evaluate the files of ``cfg.output_dir``; returns the metrics.
+
+    With ``cfg.data_axis`` × ``cfg.model_axis`` > 1 this process is one rank
+    of a ``torchrun`` launch (``mesh_lib.from_torchrun`` raises otherwise)
+    and the entity task runs sharded over the mesh; every rank prints the
+    metrics.  The relation task has no sharded path and raises then."""
+    mesh, own_group = None, False
+    if mesh_lib.axes_product(cfg.data_axis, cfg.model_axis) > 1:
+        if task == "relation":
+            raise NotImplementedError(harness.NO_SHARDED_RELATION_TASK)
+        own_group = not torch.distributed.is_initialized()
+        mesh = mesh_lib.from_torchrun(cfg.data_axis, cfg.model_axis, device)
+        print(f"rank {multihost.process_index()} of {multihost.process_count()}: {mesh}")
+    try:
+        return _evaluate_files(model_name, cfg, verbose, device if mesh is None else mesh.device, task, mesh)
+    finally:
+        if own_group:
+            # The process group this call made; the ranks leave it together.
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate_files(model_name: str, cfg: EmbeddingConfig, verbose: bool, device, task: str, mesh) -> dict:
     dev = resolve_device(device)
     model = model_base.get_model(model_name)
     print(cfg.describe())
@@ -60,7 +94,10 @@ def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device
     # CTransR's relation_clusters / cluster_centers, PTransE's relation_inv
     # (and comp_w for RNN), from the sidecar's extras.
     arrays.update({key: host[name] for name, key in model.file_extras.items() if name in host})
-    params = params_from_numpy({name: a.astype("float32") for name, a in arrays.items()}, dev)
+    params = params_from_numpy({name: a.astype("float32") for name, a in arrays.items()}, "cpu" if mesh is not None else dev)
+    if mesh is not None:
+        # Each rank's device holds only its cut of the cut tables.
+        params = sharding.place_params(mesh, params)
     if task == "relation":
         path_store = None
         if model.uses_paths:
@@ -76,7 +113,7 @@ def run_eval(model_name: str, cfg: EmbeddingConfig, verbose: bool = True, device
         print(f"Relation Raw      -- Rank: {metrics['raw_mean_rank']:f}, Hits@1: {metrics['raw_hits1']:f}")
         print(f"Relation Filtered -- Rank: {metrics['filtered_mean_rank']:f}, Hits@1: {metrics['filtered_hits1']:f}")
         return metrics
-    metrics = harness.evaluate(model, params, dataset, cfg, verbose=verbose, device=dev)
+    metrics = harness.evaluate(model, params, dataset, cfg, verbose=verbose, device=dev, mesh=mesh)
     harness.print_reference_style(metrics)
     harness.print_extended(metrics)
     return metrics

@@ -33,8 +33,12 @@ Under a mesh (``parallel/mesh.py``; ``rank_all(mesh=...)``, as
 ``model`` axis: each rank projects only its rows per group, builds their
 aligned transpose (and ‖e‖²), and ranks every batch through
 ``parallel/eval.py``: the rank count (or CTransR's routed sweep) on its
-shard, anchors and energies from their owners, the counts summed.  Every
-rank gets the one-rank harness's ranks.
+shard, anchors and energies from their owners, the counts summed.  The
+tables cut on the relation axis (TransR's and CTransR's ``proj``,
+``relation_c``, ``centers``) stay cut: each group fetches its relation's
+rows from their owner, where the JAX package replicates them at the eval's
+entry.  Every rank gets the one-rank harness's ranks.  Relation prediction
+has no sharded path (in either package) and refuses a mesh.
 """
 
 from __future__ import annotations
@@ -166,7 +170,8 @@ def rank_all(
     (a stable sort of the query list by relation id).  A cluster-aware model
     ranks through the cluster-routed sweep (no rank-count launch).  With
     ``mesh`` each rank sweeps its entity rows on the mesh's device;
-    ``params["entity"]`` may be the full table or this rank's rows.
+    ``params["entity"]`` may be the full table or this rank's rows, and so
+    may each relation-cut table (its ``relation_rows``).
     """
     dev = resolve_device(device if mesh is None else mesh.device)
     if cfg.eval_impl not in ("auto", "pallas"):
@@ -243,23 +248,37 @@ def rank_all(
     # One candidate width for the whole eval, as the JAX harness compiles once.
     kmax = _round_up_pow2(int(q_count.max(initial=1)))
 
-    row0 = 0
+    row0, cut = 0, {}
     if mesh is not None:
         from kb2e_tpu_torch.parallel import eval as par_eval
         from kb2e_tpu_torch.parallel import sharding
 
         row0, _ = mesh.entity_rows(dataset.n_entities)
         params = {**params, "entity": sharding.local_rows(mesh, params["entity"], dataset.n_entities)}
+        # The relation-cut tables stay cut: each group fetches its rows.
+        cut = {key: sharding.local_relations(mesh, params[key], dataset.n_relations)
+               for key in sharding.RELATION_KEYS if key in params}
+        rel0, _ = mesh.relation_rows(dataset.n_relations)
+
+    def group_tables(rel_id):
+        """(tables, index) of relation ``rel_id``'s group: under a mesh its
+        rows of the relation-cut tables from their owner, as one-row tables
+        at index 0 (the same bits as the whole table's rows)."""
+        if not cut or rel_id is None:
+            return params, rel_id
+        rid = torch.tensor([rel_id], device=dev)
+        return {**params, **sharding.owned_tables(mesh, cut, rid, rel0)}, 0
 
     raws = torch.empty((feed_sel.shape[0] // batch_size, batch_size), dtype=torch.int32, device=dev)
     filts = torch.empty_like(raws)
     i = 0
     for rel_id, idxs in groups:
-        proj = params["entity"] if rel_id is None else model.project_entities(params, rel_id)
+        tables, rel = group_tables(rel_id)
+        proj = params["entity"] if rel_id is None else model.project_entities(tables, rel)
         if model.cluster_aware:
             # The group's projection and u = e·ce, once; routed batches.
             ent = params["entity"]
-            vecs, centers = model.cluster_vectors(params, rel_id), model.cluster_centers(params, rel_id)
+            vecs, centers = model.cluster_vectors(tables, rel), model.cluster_centers(tables, rel)
             u = ent @ centers.T
             for _ in range(0, idxs.shape[0], batch_size):
                 sl = slice(i * batch_size, (i + 1) * batch_size)
@@ -319,6 +338,8 @@ def evaluate(
 # that a [B, R′, k] float32 temporary ([B, P, R′, k] with path evidence)
 # stays within this many bytes.
 RELATION_SLICE_BYTES = 1 << 30
+NO_SHARDED_RELATION_TASK = ("relation prediction (--task relation) has no sharded path, in this package or in "
+                            "kb2e_tpu: run it on one device, without --data-axis/--model-axis")
 
 
 def relation_ranks(
@@ -330,6 +351,7 @@ def relation_ranks(
     test_triples: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
     path_store=None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """(raw, filtered) int32 ranks of each test triple's relation among all R,
     and the batch sizes, as ``kb2e_tpu/eval/harness.py::evaluate_relation_prediction``
@@ -347,7 +369,10 @@ def relation_ranks(
     relations known to hold for (h, t) in train ∪ valid ∪ test (set
     semantics: one ``np.unique`` over packed (h·N + t)·R + r keys) that beat
     the true one.  Ranks stay on the device until one fetch at the end.
+    ``mesh`` raises: relation prediction has no sharded path.
     """
+    if mesh is not None:
+        raise NotImplementedError(NO_SHARDED_RELATION_TASK)
     dev = resolve_device(device)
     params, (th, tt, tr), parts = _eval_inputs(params, dataset, test_triples, dev)
     n_test, n_rel, n_ent = th.shape[0], dataset.n_relations, dataset.n_entities
@@ -418,12 +443,13 @@ def evaluate_relation_prediction(
     path_store=None,
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """Relation prediction on ``device`` (the PTransE paper's second task;
     the reference has none), with PTransE's path evidence when
     ``path_store`` is given; returns the metrics, Hits@1 among them."""
     raw, filt, sizes = relation_ranks(model, params, dataset, cfg, test_triples=test_triples, path_store=path_store,
-                                      device=device)
+                                      device=device, mesh=mesh)
     if verbose:
         print(f"\rRelation prediction {100.0:05.2f}% ...")
     return metrics_from_ranks(raw, filt, sizes)

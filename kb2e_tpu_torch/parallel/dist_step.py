@@ -14,10 +14,14 @@ and a few collectives make it compute the single-device function:
   dense table (TransR's [R, k, k] matrices are 53.8 MB at FB15k's shape).
   The steps after the add (ball norms, TransH's projector, TransR's ball
   iteration) then run on identical tables on every rank.
-* Under the ``model`` axis each rank holds a shard of the entity rows.  The
-  rows the batch touches come from their owners (``sharding.owned_rows``),
-  the model updates that compact table with the batch's entity ids mapped
-  into it, and each owner keeps its rows of the result.
+* Under the ``model`` axis each rank holds a shard of the entity rows, and
+  of TransR's and CTransR's per-relation tables (``proj``, ``relation_c``,
+  ``centers``) on the relation axis.  The rows the batch touches come from
+  their owners (``sharding.owned_rows``), the model updates those compact
+  tables with the batch's ids mapped into them, and each owner keeps its
+  rows of the result.  The replicated ``relation`` table goes compact
+  alongside (TransR indexes ``[entity; relation]`` with one id), and every
+  rank writes its rows back.
 * Losses are summed over ``data``.
 """
 
@@ -82,8 +86,9 @@ class RowGather:
 def distributed_update(model: Model, cfg: EmbeddingConfig, mesh: Mesh, params: Params, batch: Batch,
                        n_entities: int) -> Tuple[Params, torch.Tensor]:
     """``model.batch_update`` of the whole ``batch`` (every rank holds it)
-    on this rank's share; returns this rank's tables (its entity shard under
-    the ``model`` axis) and the batch's loss."""
+    on this rank's share; returns this rank's tables (under the ``model``
+    axis its entity shard and its relations of the relation-cut tables) and
+    the batch's loss."""
     d = mesh.shape["data"]
     b = next(iter(batch.values())).shape[0]
     if b % d:
@@ -91,7 +96,7 @@ def distributed_update(model: Model, cfg: EmbeddingConfig, mesh: Mesh, params: P
     share = b // d
     lo = mesh.data_index * share
     local = {k: v[lo:lo + share] for k, v in batch.items()}
-    shard = None
+    shard = cut = None
     if mesh.shape["model"] > 1:
         shard = params["entity"]
         row0, _ = mesh.entity_rows(n_entities)
@@ -99,12 +104,25 @@ def distributed_update(model: Model, cfg: EmbeddingConfig, mesh: Mesh, params: P
         params = {**params, "entity": sharding.owned_rows(mesh, shard, rows, row0)}
         local.update({k: torch.searchsorted(rows, local[k].to(torch.int64)).to(local[k].dtype)
                       for k in ENTITY_KEYS})
-    with scatter.every_rank(RowGather(mesh, share)):
+        cut = {key: params[key] for key in sharding.RELATION_KEYS if key in params}
+    if cut:
+        relation = params["relation"]
+        rel0, rel1 = mesh.relation_rows(relation.shape[0])
+        rrows = torch.unique(batch["r"].reshape(-1).to(torch.int64))
+        params = {**params, "relation": relation[rrows], **sharding.owned_tables(mesh, cut, rrows, rel0)}
+        local["r"] = torch.searchsorted(rrows, local["r"].to(torch.int64)).to(local["r"].dtype)
+    # One rank on ``data`` holds the whole batch: nothing to gather.
+    with scatter.every_rank(RowGather(mesh, share) if d > 1 else None):
         params, loss = model.batch_update(params, local, cfg)
     if shard is not None:
         li = rows - row0
         own = (li >= 0) & (li < shard.shape[0])
         params = {**params, "entity": shard.index_copy(0, li[own], params["entity"][own])}
+    if cut:
+        li = rrows - rel0
+        own = (li >= 0) & (li < rel1 - rel0)
+        params = {**params, "relation": relation.index_copy(0, rrows, params["relation"]),
+                  **{key: table.index_copy(0, li[own], params[key][own]) for key, table in cut.items()}}
     return params, mesh.all_reduce(loss.detach().clone(), "data")
 
 

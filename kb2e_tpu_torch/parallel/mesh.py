@@ -10,9 +10,11 @@ groups:
   contiguous share of every batch, and their row deltas are summed
   (``parallel/dist_step.py``);
 * ``model`` — the ranks of one row (same data index): the entity table's rows
-  are cut among them (:meth:`Mesh.entity_rows`), and a row or an energy
-  reaches the others from its owner by one ``all_reduce`` (the owner adds the
-  value, every other rank adds 0).
+  are cut among them (:meth:`Mesh.entity_rows`), and so are TransR's and
+  CTransR's per-relation tables on the relation axis
+  (:meth:`Mesh.relation_rows`); a row or an energy reaches the others from
+  its owner by one ``all_reduce`` (the owner adds the value, every other rank
+  adds 0).
 
 Only ``all_reduce`` and ``broadcast`` run on the device, so the same code runs
 over NCCL and over gloo, whose collectives take CUDA tensors too.
@@ -65,6 +67,17 @@ class Mesh:
         """[row0, row1): the entity rows this rank holds out of ``n``."""
         cuts = shard_bounds(n, self.shape["model"])
         return cuts[self.model_index], cuts[self.model_index + 1]
+
+    def relation_rows(self, r: int) -> Tuple[int, int]:
+        """[rel0, rel1): the relations this rank holds out of ``r`` in the
+        tables cut on the relation axis: contiguous cuts of ceil(r / model)
+        relations, the last shorter (or empty).  No alignment: no kernel reads
+        these tables in place.  The JAX package pads R to a multiple of the
+        axis and cuts it evenly instead; every relation has one owner either
+        way."""
+        m = self.shape["model"]
+        per = -(-r // m)
+        return min(self.model_index * per, r), min((self.model_index + 1) * per, r)
 
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum ``x`` in place over the ranks of ``axis`` ('data' or 'model'); returns it."""
@@ -144,7 +157,7 @@ def axes_product(data_axis: Optional[int], model_axis: Optional[int]) -> int:
 
 def from_torchrun(data_axis: Optional[int], model_axis: Optional[int], device="cuda") -> Mesh:
     """The process group of a ``torchrun`` launch and its mesh, for the
-    trainer's ``--data-axis`` / ``--model-axis``.
+    CLIs' ``--data-axis`` / ``--model-axis``.
 
     Raises before any rendezvous when the process was not started by
     ``torchrun`` (no ``WORLD_SIZE`` in the environment), when the world size
@@ -158,7 +171,8 @@ def from_torchrun(data_axis: Optional[int], model_axis: Optional[int], device="c
     if "WORLD_SIZE" not in os.environ:
         raise RuntimeError(
             f"--data-axis {data_axis} --model-axis {model_axis} asks for {want} ranks, but this process was not "
-            f"started by torchrun: run torchrun --nproc_per_node {want} -m kb2e_tpu_torch.cli.train_<model> ...")
+            f"started by torchrun: run torchrun --nproc_per_node {want} -m kb2e_tpu_torch.cli.train_<model> "
+            "(or eval_<model>) ...")
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     d, m = _axis_sizes(data_axis, model_axis, world)
     if d * m != world:

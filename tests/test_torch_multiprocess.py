@@ -10,7 +10,10 @@ processes) must
 * survive the hard exit of one process after a checkpoint: both restart
   with ``--resume`` and end on the uninterrupted run's tables exactly,
 * write the entity-sharded eval's metrics equal to a one-rank ``evaluate``
-  of its final tables.
+  of its final tables;
+* do the same for TransR, whose matrices are cut on the relation axis: the
+  whole tables in ``--out-npz`` (``gather_params``), the sharded eval's
+  metrics equal to one rank's.
 
 Every process has a deadline and is killed when it passes; the process
 group's timeout makes a rank whose peer died leave its collective.
@@ -92,6 +95,30 @@ def mp_artifacts(tiny_kg_dir, tmp_path_factory):
                           "--checkpoint-dir", os.path.join(tmp, "ckpt_a"), "--checkpoint-every", str(CKPT_EVERY)])
     _run(tmp, "one", 1, ["--datadir", tiny_kg_dir, "--out-npz", one])
     return {"tmp": tmp, "out": out, "one": one, "eval_out": eval_out, "kg": tiny_kg_dir}
+
+
+@pytest.fixture(scope="module")
+def transr_artifacts(tiny_kg_dir, tmp_path_factory):
+    """TransR at model axis 2 over 2 processes, and at 1 process."""
+    tmp = str(tmp_path_factory.mktemp("torch_mp_transr"))
+    out, one, eval_out = (os.path.join(tmp, name) for name in ("two.npz", "one.npz", "eval_metrics.json"))
+    common = ["--datadir", tiny_kg_dir, "--model", "transr", "--rate", "0.02"]
+    _run(tmp, "base", 2, common + ["--model-axis", "2", "--out-npz", out, "--eval-out", eval_out])
+    _run(tmp, "one", 1, common + ["--out-npz", one])
+    return {"out": out, "one": one, "eval_out": eval_out, "kg": tiny_kg_dir}
+
+
+def test_two_process_transr_writes_the_whole_matrices_and_trains_to_the_tables_of_one(transr_artifacts):
+    two, one = np.load(transr_artifacts["out"]), np.load(transr_artifacts["one"])
+    assert two["proj"].shape == (8, 16, 16)
+    for key in ("entity", "relation", "proj"):
+        np.testing.assert_allclose(two[key], one[key], atol=1e-6, rtol=1e-6, err_msg=key)
+    with open(transr_artifacts["eval_out"], encoding="utf-8") as f:
+        mp_metrics = json.load(f)
+    cfg = EmbeddingConfig(embedding_size=16, distance=0)
+    dataset = triples.load_dataset(transr_artifacts["kg"], splits=("train", "valid", "test"))
+    assert harness.evaluate(get_model("transr"), params_from_numpy(dict(two), "cpu"), dataset, cfg,
+                            device="cpu") == mp_metrics
 
 
 def test_two_process_train_runs_and_writes(mp_artifacts):

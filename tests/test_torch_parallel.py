@@ -6,15 +6,20 @@ deadline, killed when it runs out.  They compute every multi-rank case and
 pickle what each rank got; the tests then hold it, in this process, against
 
 * the port's one-rank function on the same inputs: the sharded eval's ranks
-  and metrics exactly (model axes 2 and 3, so the shards are uneven); the
-  distributed step (meshes (2, 1) and (1, 2) for every model, (2, 2) for
-  TransE) bit for bit for one step on dyadic tables with a dyadic learning
-  rate, and within atol 2e-6 (loss rel 1e-5) on init tables and over a
-  4-batch epoch of the runner: ``tests/test_parallel.py``'s bounds;
+  and metrics exactly (model axes 2 and 3, so the shards are uneven; TransR's
+  and CTransR's per-relation tables cut as placed, 8 relations over 3 ranks
+  included); the distributed step (meshes (2, 1) and (1, 2) for every model,
+  (2, 2) for TransE) bit for bit for one step on dyadic tables with a dyadic
+  learning rate, and within atol 2e-6 (loss rel 1e-5) on init tables and over
+  a 4-batch epoch of the runner: ``tests/test_parallel.py``'s bounds; the
+  whole tables ``gather_params`` assembles; a (1, 2) run resumed from its
+  checkpoint; the eval CLI's lines at model axes 2 and 4;
 * kb2e_tpu's ``harness.evaluate(mesh=...)`` over a mesh of the same shape,
   and its multihost merge, exactly.
 """
 
+import contextlib
+import io
 import os
 import pickle
 import socket
@@ -32,6 +37,8 @@ from kb2e_tpu_torch.convert import params_from_numpy
 from kb2e_tpu_torch.data import paths as paths_lib
 from kb2e_tpu_torch.data import triples
 from kb2e_tpu_torch.eval import harness
+from kb2e_tpu_torch.io import checkpoint as ckpt_lib
+from kb2e_tpu_torch.io import text
 from kb2e_tpu_torch.models import ctransr
 from kb2e_tpu_torch.ops import distances, rank_count
 from kb2e_tpu_torch.parallel import eval as par_eval
@@ -54,6 +61,9 @@ STEP_CASES = [(m, mesh) for m in MODELS for mesh in ((2, 1), (1, 2))] + [("trans
 EVAL_CASES = [("transe", 0), ("transe", 1), ("transh", 0), ("transr", 0), ("transr", 1), ("ctransr", 0),
               ("ctransr", 1), ("ptranse", 0)]
 EVAL_AXES = (2, 3)
+CUT_MODELS = ("transr", "ctransr")  # the models with relation-cut tables
+# (model axis, distance) of the eval CLI over the world: meshes (2, 2) and (1, 4).
+CLI_CASES = ((2, 0), (4, 1))
 EVAL_KNOBS = dict(embedding_size=K, eval_batch_size=64, eval_block_size=24)
 # The shard-boundary case: 24 entities over a model axis of 3 (rows 0-7,
 # 8-15, 16-23); rows TIED share one vector, so each query's true entity
@@ -146,6 +156,75 @@ def _tie_inputs():
     return ent, queries, true_idx
 
 
+def _mesh_at(shape, r: int) -> mesh_lib.Mesh:
+    """Rank ``r``'s place on a ``shape`` mesh, without its process groups."""
+    return mesh_lib.Mesh({"data": shape[0], "model": shape[1]}, divmod(r, shape[1]), {"data": None, "model": None},
+                         torch.device("cpu"))
+
+
+def _held_rows(shape, r: int, host, n_entities: int):
+    """The rows of each table that rank ``r`` of a ``shape`` mesh holds:
+    its ``entity_rows``, its ``relation_rows`` of a relation-cut table, every
+    row of a replicated one."""
+    mesh = _mesh_at(shape, r)
+    n_rel = host["relation"].shape[0]
+    bounds = {key: mesh.relation_rows(n_rel) for key in sharding.RELATION_KEYS}
+    bounds["entity"] = mesh.entity_rows(n_entities)
+    held = {}
+    for key, value in host.items():
+        row0, row1 = bounds.get(key, (0, value.shape[0]))
+        held[key] = row1 - row0
+    return held
+
+
+def _cli_argv(kg_dir: str, files: str, dist: int):
+    return ["--datadir", kg_dir, "--outdir", files, "--size", str(K), "--method", "1", "--distance", str(dist),
+            "--eval-batch", "64", "--eval-block", "24", "--seed", "1", "--device", "cpu"]
+
+
+def _write_cli_files(kg_dir: str, files: str) -> None:
+    """Dyadic TransR tables as eval_transr reads them (multiples of 1/16:
+    the files' 6 decimals hold them exactly)."""
+    dataset = triples.load_dataset(kg_dir, splits=("train",), use_native=False)
+    host = _dyadic_tables("transr", dataset.n_entities, dataset.n_relations, seed=21)
+    text.write_embeddings(files, Method.BERN, host["entity"], host["relation"], weights=host["proj"],
+                          model_name="transr")
+
+
+def _stdout_of(fn, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return buf.getvalue()
+
+
+def _metric_lines(out: str):
+    return [line for line in out.splitlines() if "-- " in line]
+
+
+def _resume_case(model_name: str, ts, dataset, mesh, ckpt_dir: str):
+    """A 2-epoch run over ``mesh``; the same run's first epoch, checkpointed
+    with the valid eval on its (cut) tables; the run resumed from that
+    checkpoint.  Returns (uninterrupted tables, resumed tables, valid metrics)."""
+    model = get_model(model_name)
+    cfg = _cfg(learning_rate=0.02, num_batches=4, max_epochs=2)
+    valid = []
+
+    def eval_fn(params):
+        valid.append(harness.evaluate(model, params, dataset, EmbeddingConfig(**EVAL_KNOBS),
+                                      test_triples=dataset.valid, mesh=mesh))
+        return valid[-1]
+
+    def run(cfg, **kw):
+        init = params_from_numpy(_init_tables(model_name, ts), "cpu")
+        out = loop.train(model, cfg, ts, init_params=init, device="cpu", mesh=mesh, **kw)
+        return {k: v.numpy() for k, v in out.items()}
+
+    whole = run(cfg)
+    run(cfg.replace(max_epochs=1), checkpoint_dir=ckpt_dir, checkpoint_every=1, eval_every=1, eval_fn=eval_fn)
+    return whole, run(cfg, checkpoint_dir=ckpt_dir, resume=True), valid
+
+
 # --- the ranks -------------------------------------------------------------------
 
 def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> None:
@@ -171,8 +250,13 @@ def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> N
             model = get_model(model_name)
             host = _dyadic_tables(model_name, dataset.n_entities, dataset.n_relations, seed=11 + dist)
             cfg = EmbeddingConfig(distance=Distance(dist), **EVAL_KNOBS)
-            raw, filt, sizes = harness.rank_all(model, params_from_numpy(host, "cpu"), dataset, cfg, mesh=mesh)
-            got["eval", model_name, dist, m] = (raw, filt, harness.metrics_from_ranks(raw, filt, sizes))
+            placed = sharding.place_params(mesh, params_from_numpy(host, "cpu"))
+            raw, filt, sizes = harness.rank_all(model, placed, dataset, cfg, mesh=mesh)
+            got["eval", model_name, dist, m] = (raw, filt, harness.metrics_from_ranks(raw, filt, sizes),
+                                                {k: v.shape[0] for k, v in placed.items()})
+            if model_name in CUT_MODELS:  # the whole tables, as the driver passes them
+                got["eval whole", model_name, dist, m] = harness.rank_all(
+                    model, params_from_numpy(host, "cpu"), dataset, cfg, mesh=mesh)[:2]
 
     tie_mesh = mesh_lib.make_mesh(1, 3, ranks=range(3))
     if tie_mesh is not None:
@@ -207,7 +291,28 @@ def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> N
                 out, loss = dist_step.make_distributed_train_step(model, cfg, mesh, B)(params, gen, data)
             full = sharding.gather_params(mesh, out, N_ENT)
             got["step", kind, model_name, shape] = ({k: v.numpy() for k, v in full.items()}, float(loss),
-                                                   out["entity"].shape[0])
+                                                   {k: v.shape[0] for k, v in out.items()})
+            if kind == "dyadic":  # the dyadic tables as placed, assembled again
+                again = sharding.gather_params(mesh, sharding.place_params(mesh, params_from_numpy(host, "cpu")),
+                                               N_ENT)
+                got["gather", model_name, shape] = {k: v.numpy() for k, v in again.items()}
+
+    if meshes[1, 2] is not None:
+        for model_name in CUT_MODELS:
+            got["resume", model_name] = _resume_case(model_name, ts, dataset, meshes[1, 2],
+                                                     os.path.join(out_dir, f"ckpt_{model_name}"))
+    else:
+        for _ in CUT_MODELS:
+            multihost.barrier()  # the checkpoint's barrier, which every rank of the world joins
+
+    # The eval CLI as torchrun starts it: WORLD_SIZE and RANK in the
+    # environment, the process group (here the world's) found by from_torchrun.
+    from kb2e_tpu_torch.cli import eval_transr
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank))
+    for m, dist in CLI_CASES:
+        got["cli", m] = _stdout_of(eval_transr.main, _cli_argv(kg_dir, os.path.join(out_dir, "cli_transr"), dist)
+                                   + ["--model-axis", str(m)])
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(got, f)
     multihost.barrier()
@@ -251,8 +356,14 @@ def _run_world(kg_dir: str, out_dir: str):
 
 
 @pytest.fixture(scope="module")
-def ranks(tiny_kg_dir, tmp_path_factory):
-    return _run_world(tiny_kg_dir, str(tmp_path_factory.mktemp("torch_ranks")))
+def world_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("torch_ranks"))
+
+
+@pytest.fixture(scope="module")
+def ranks(tiny_kg_dir, world_dir):
+    _write_cli_files(tiny_kg_dir, os.path.join(world_dir, "cli_transr"))
+    return _run_world(tiny_kg_dir, world_dir)
 
 
 @pytest.fixture(scope="module")
@@ -280,11 +391,16 @@ def test_sharded_eval_equals_one_rank_and_jax_mesh_eval(ranks, tiny_kg_dir, tiny
     raw, filt, sizes = harness.rank_all(get_model(model_name), params_from_numpy(host, "cpu"), dataset, cfg,
                                         device="cpu")
     one_rank = harness.metrics_from_ranks(raw, filt, sizes)
-    for r in range(m):  # every rank of the mesh gets the one-rank ranks
-        s_raw, s_filt, s_metrics = ranks[r]["eval", model_name, dist, m]
+    for r in range(m):  # every rank of the mesh gets the one-rank ranks, from its cut of the tables
+        s_raw, s_filt, s_metrics, held = ranks[r]["eval", model_name, dist, m]
         np.testing.assert_array_equal(s_raw, raw)
         np.testing.assert_array_equal(s_filt, filt)
         assert s_metrics == one_rank
+        assert held == _held_rows((1, m), r, host, dataset.n_entities)
+        if model_name in CUT_MODELS:  # and from the whole tables
+            w_raw, w_filt = ranks[r]["eval whole", model_name, dist, m]
+            np.testing.assert_array_equal(w_raw, raw)
+            np.testing.assert_array_equal(w_filt, filt)
     want = jax_harness.evaluate(
         jax_get_model(model_name), {k: jnp.asarray(v) for k, v in host.items()}, tiny_dataset,
         JConfig(distance=JDistance(dist), **EVAL_KNOBS),
@@ -341,11 +457,40 @@ def test_shard_bounds_are_aligned_and_cover_the_rows():
 def test_distributed_step_equals_one_device_bit_for_bit_on_dyadic_tables(ranks, ts, model_name, shape):
     want, want_loss = _single_step("dyadic", model_name, ts)
     for r in range(shape[0] * shape[1]):
-        got, loss, n_rows = ranks[r]["step", "dyadic", model_name, shape]
-        assert n_rows == (N_ENT if shape[1] == 1 else mesh_lib.shard_bounds(N_ENT, 2)[1])
+        got, loss, held = ranks[r]["step", "dyadic", model_name, shape]
+        assert held == _held_rows(shape, r, want, N_ENT)  # only its cut of each cut table
         assert loss == want_loss
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=f"{model_name} {shape} rank {r} {key}")
+
+
+@pytest.mark.parametrize("model_name,shape", STEP_CASES)
+def test_gather_params_returns_the_whole_tables_bit_for_bit(ranks, model_name, shape):
+    want = _dyadic_tables(model_name, N_ENT, N_REL, seed=MODELS.index(model_name))
+    for r in range(shape[0] * shape[1]):
+        got = ranks[r]["gather", model_name, shape]
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{model_name} {shape} rank {r} {key}")
+
+
+@pytest.mark.parametrize("model_name", CUT_MODELS)
+def test_a_checkpoint_written_at_1x2_resumes_to_the_uninterrupted_run(ranks, tiny_kg_dir, world_dir, model_name):
+    """Rank 0 writes the full tables (``gather_params``) after epoch 1; both
+    ranks restore them, keep their cuts and end on the 2-epoch run's tables
+    to the bit.  The valid eval at epoch 1, handed the cut tables, equals a
+    one-rank eval of the checkpoint."""
+    restored, step, _ = ckpt_lib.restore(os.path.join(world_dir, f"ckpt_{model_name}", "ckpt_1"))
+    assert step == 1
+    dataset = triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"), use_native=False)
+    one_rank = harness.evaluate(get_model(model_name), restored, dataset, EmbeddingConfig(**EVAL_KNOBS),
+                                test_triples=dataset.valid, device="cpu")
+    for r in range(2):
+        whole, resumed, valid = ranks[r]["resume", model_name]
+        assert set(resumed) == set(whole) == set(restored)
+        for key in whole:
+            np.testing.assert_array_equal(resumed[key], whole[key], err_msg=f"{model_name} rank {r} {key}")
+        assert valid == [one_rank]
 
 
 @pytest.mark.parametrize("kind", ["init", "epoch"])
@@ -396,6 +541,40 @@ def test_train_cli_with_a_data_axis_and_no_process_group_raises(tiny_kg_dir, tmp
         train_transe.main(argv + ["--data-axis", "2", "--model-axis", "1"])
     with pytest.raises(ValueError, match="needs a mesh, and none was passed"):
         loop.train(get_model("transe"), _cfg(data_axis=2, max_epochs=1, num_batches=4), _triple_set(), device="cpu")
+
+
+def test_eval_cli_with_a_model_axis_and_no_process_group_raises(tiny_kg_dir, world_dir, monkeypatch):
+    from kb2e_tpu_torch.cli import eval_transr
+
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    argv = _cli_argv(tiny_kg_dir, os.path.join(world_dir, "absent"), 0)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        eval_transr.main(argv + ["--model-axis", "2"])
+    with pytest.raises(NotImplementedError, match="no sharded path"):  # before any rendezvous
+        eval_transr.main(argv + ["--model-axis", "2", "--task", "relation"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_relation_prediction_under_a_mesh_raises(tiny_kg_dir):
+    dataset = triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"), use_native=False)
+    host = _dyadic_tables("transr", dataset.n_entities, dataset.n_relations, seed=3)
+    with pytest.raises(NotImplementedError, match="no sharded path"):
+        harness.evaluate_relation_prediction(get_model("transr"), params_from_numpy(host, "cpu"), dataset,
+                                             EmbeddingConfig(embedding_size=K), mesh=mesh_lib.single_device_mesh())
+
+
+@pytest.mark.parametrize("m,dist", CLI_CASES)
+def test_eval_cli_over_the_world_prints_the_one_rank_lines(ranks, tiny_kg_dir, world_dir, m, dist):
+    from kb2e_tpu_torch.cli import eval_transr
+
+    want = _metric_lines(_stdout_of(eval_transr.main, _cli_argv(tiny_kg_dir, os.path.join(world_dir, "cli_transr"),
+                                                                 dist)))
+    assert len(want) == 4
+    for r in range(WORLD):
+        out = ranks[r]["cli", m]
+        assert f"rank {r} of {WORLD}: Mesh(data={WORLD // m}, model={m}, coords={divmod(r, m)}, cpu)" in out
+        assert _metric_lines(out) == want
 
 
 def test_two_nccl_ranks_on_one_card_are_refused_before_any_rendezvous(monkeypatch):
@@ -466,15 +645,34 @@ def test_step_timer_rate():
 
 @pytest.mark.parametrize("name", MODELS)
 def test_param_specs_cover_every_model_and_place_on_a_mesh(name):
+    """The JAX package's specs: entity rows and the per-relation tables of
+    TransR and CTransR over ``model``, the rest replicated."""
+    from kb2e_tpu.parallel import sharding as jax_sharding
+
     model = get_model(name)
     cfg = EmbeddingConfig(embedding_size=8, path_composition="rnn")
     params = model.init_params(torch.Generator().manual_seed(0), 64, 8, cfg, "cpu")
     assert set(params) <= set(sharding.PARAM_SPECS), set(params) - set(sharding.PARAM_SPECS)
     for key, value in params.items():
+        assert sharding.PARAM_SPECS[key] == tuple(jax_sharding.PARAM_SPECS[key]), key
         assert len(sharding.PARAM_SPECS[key]) == value.dim(), key
+    assert sharding.RELATION_KEYS == ("proj", "relation_c", "centers")
     placed = sharding.place_params(mesh_lib.single_device_mesh("cpu"), params)
     for key, value in placed.items():
         assert torch.equal(value, params[key])
+
+
+@pytest.mark.parametrize("r,m", [(8, 2), (8, 3), (1345, 2), (1345, 4), (3, 4)])
+def test_relation_rows_cut_the_relations_evenly_with_the_last_short(r, m):
+    cuts = [_mesh_at((1, m), i).relation_rows(r) for i in range(m)]
+    assert cuts[0][0] == 0 and cuts[-1][1] == r
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))  # contiguous, each relation once
+    sizes = [hi - lo for lo, hi in cuts]
+    assert sizes[0] == -(-r // m) and sorted(sizes, reverse=True) == sizes  # not rounded to ROW_ALIGN
+    table = torch.arange(r * 2, dtype=torch.float32).reshape(r, 2)
+    parts = [sharding.local_relations(_mesh_at((1, m), i), table, r) for i in range(m)]
+    assert torch.equal(torch.cat(parts), table)
+    assert all(sharding.local_relations(_mesh_at((1, m), i), part, r) is part for i, part in enumerate(parts))
 
 
 @pytest.mark.parametrize("model_name", MODELS)
