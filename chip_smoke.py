@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py --ranking-alone     # phases 1-2, harness.rank_all timed alone
     python3 chip_smoke.py --distributed-only  # phases 1-2, the data, the distributed phase
     python3 chip_smoke.py --nccl-cards        # the same over NCCL on every card of a host (2 or more)
+    python3 chip_smoke.py --quality-scale [model ...]  # phases 1-2 and the scale-quality cells of the models
 
 Phases, each printing one line (or a few) and stopping the run with a
 non-zero exit on any failure:
@@ -122,8 +123,22 @@ non-zero exit on any failure:
                 benchmarks/ptranse_composition.py on compositional_kg: with
                 evidence in MECHANISM_BAND, at least MECHANISM_MIN_GAIN above
                 without;
-5. distributed — the port's ``parallel/`` package on the card, after the
-              main paths, on the same FB15k-shaped directory:
+5. scale    — benchmarks/quality_fb15k_scale.py's protocol through the
+              port's CLIs (SCALE_CELLS): a planted KG of FB15k's shape
+              (14,951 entities, 1,345 relations, 483,142 drawn triples, seed
+              11; generated on the host, cut in order into train, 5 % valid
+              and 5 % test), k 100, bern, L1, 100 batches, 40 epochs:
+              TransE at K = 1 and K = 8 negatives and TransH at K = 8 here
+              (``--quality-scale`` adds TransR and CTransR at K = 8,
+              warm-started from the K = 1 TransE files), each trained by
+              ``train_<model>`` and scored by ``eval_<model>`` with one K1
+              launch a batch of each group; on TransE K = 8's trained tables
+              the first N_CHECK ranks equal K1's plain version; each cell's
+              filtered Hits@10 within SCALE_HITS_TOL and filtered MR within
+              SCALE_MR_RTOL of the JAX package's record, K = 8 at least
+              SCALE_K_GAIN above K = 1, filtered MR in the record's order;
+6. distributed — the port's ``parallel/`` package on the card, after the
+              scale cells, on the main paths' FB15k-shaped directory:
               (a) the entity-sharded eval, 2 ranks on cuda:0 over gloo
               (NCCL refuses two ranks on one device), model axis 2, from
               tables placed as the mesh cuts them (entity rows, and
@@ -131,21 +146,24 @@ non-zero exit on any failure:
               axis; each rank fetches a group's W_r from its owner): the
               seeded TransE files at ``--distance 0`` and ``1``, the TransR
               files (W = I) at L1 and L2, the TransR files with a seeded
-              non-dyadic W at L1 and L2 and seeded dyadic CTransR tables at
-              L1 and L2 (these four on the test triples of the first
-              relations): each rank's ranks equal the one-rank harness's
-              exactly, with one rank-count launch per batch on each rank
-              (462 a TransE eval, 1,345 a TransR eval; they add to the
+              non-dyadic W at L1 and L2, seeded dyadic and non-dyadic
+              CTransR tables at L1 and L2 (these six on the test triples of
+              the first relations): each rank's ranks equal the one-rank
+              harness's exactly, with one rank-count launch per batch on each
+              rank (462 a TransE eval, 1,345 a TransR eval; they add to the
               kernel records' launches; none for CTransR), and each rank's
               first N_CHECK counts agree with the plain version on that
               rank's inputs (its shard, its ‖e‖², the shifted true index);
-              (b) data-parallel TransE fast training, 2 ranks on cuda:0
-              over gloo, data axis 2, bench.py's configuration (the batch
-              rounded down to 4,830) for one epoch: after the first batch
-              the tables within atol 2e-6 of the single-rank runner's and
-              the loss within rel 1e-5 (the JAX package's bounds), and the
-              epoch's largest difference printed; then TransR and CTransR
-              (warm-started from the TransE files) at mesh (1, 2) for
+              (b) fast training over 2 ranks on cuda:0 over gloo from
+              seeded init tables, bench.py's configuration (the batch
+              rounded down to the data axis; DP_RUNS): TransE, TransH and
+              PTransE (with the train split's path store) data-parallel for
+              one epoch and TransH with its entity rows cut for three
+              batches: after the first batch the tables within atol 2e-6
+              of the single-rank runner's and the loss within rel 1e-5 (the
+              JAX package's bounds), and the run's largest difference
+              printed; then TransR and CTransR (warm-started from the
+              TransE files) at mesh (1, 2) for
               CUT_CHUNKS chunks of 256, each rank's cut of the tables held
               to the same bounds after the first chunk;
               (c) ``parallel/multiprocess.py`` at 1 process over NCCL, 2
@@ -153,7 +171,7 @@ non-zero exit on any failure:
               metrics equal ``harness.evaluate`` on the tables it wrote.
               Each part's processes are killed after DIST_DEADLINE_S;
               their walls are printed beside the card's name and power limit;
-6. timing   — per kernel at the main path's shapes: the kernel, the plain
+7. timing   — per kernel at the main path's shapes: the kernel, the plain
               version, one PyTorch library call for the same function where
               there is one, and the card's lower bound.  The rank count's
               records count the launches of every eval path (TransE,
@@ -800,7 +818,7 @@ def eval_path(data_dir: str, out_dir: str, model_name: str = "transe"):
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
     from kb2e_tpu_torch.io import text
-    from kb2e_tpu_torch.ops import distances, rank_count
+    from kb2e_tpu_torch.ops import rank_count
 
     dataset = triples.load_dataset(data_dir, splits=("train", "valid", "test"))
     n_test = dataset.test[0].shape[0]
@@ -841,25 +859,34 @@ def eval_path(data_dir: str, out_dir: str, model_name: str = "transe"):
         check(harness.metrics_from_ranks(raw, filt, sizes) == metrics, "a second run of the ranks gives other metrics")
         print(f"[main] {model_name} ranking alone (rank_all on loaded data and tables, filter index and feed "
               f"included): {rank_wall:.3f} s", flush=True)
-        th, tt, tr = (torch.from_numpy(a[: N_CHECK // 2].astype(np.int64)).cuda() for a in dataset.test)
-        anchor = torch.stack([tt, th], 1).reshape(-1)
-        true_idx = torch.stack([th, tt], 1).reshape(-1).to(torch.int32)
-        sign = torch.tensor([-1.0, 1.0], device="cuda").repeat(N_CHECK // 2)
-        queries = params["entity"][anchor] + sign[:, None] * params["relation"][tr.repeat_interleave(2)]
-        e_true = distances.residual_energy(params["entity"][true_idx] - queries, distance)
-        proj_t = params["entity"].T.contiguous()
-        plain = torch.cat([
-            1 + rank_count.rank_counts_reference(
-                proj_t, queries[s:s + EVAL_BATCH].T.contiguous(), e_true[s:s + EVAL_BATCH],
-                true_idx[s:s + EVAL_BATCH], distance)
-            for s in range(0, N_CHECK, EVAL_BATCH)
-        ])
-        n_off, max_off = compare(torch.from_numpy(raw[:N_CHECK]).cuda(), plain, False,
+        n_off, max_off = compare(torch.from_numpy(raw[:N_CHECK]).cuda(), plain_first_ranks(params, dataset, distance),
+                                 False,
                                  f"eval_{model_name} {distance.name}, first {N_CHECK} queries")
         print(f"[main] {model_name} {distance.name}: first {N_CHECK} raw ranks vs the plain version: {n_off} differ "
               f"(max {max_off})", flush=True)
         results[distance] = dict(launches=launches[name], max_off=max_off, wall=wall, rank_wall=rank_wall)
     return results
+
+
+def plain_first_ranks(params, dataset, distance) -> torch.Tensor:
+    """Raw ranks of a one-group model's first N_CHECK queries (corrupt-head,
+    then corrupt-tail, per test triple) by the rank count's plain version on
+    the card, in the harness's batches of EVAL_BATCH."""
+    from kb2e_tpu_torch.ops import distances, rank_count
+
+    th, tt, tr = (torch.from_numpy(a[: N_CHECK // 2].astype(np.int64)).cuda() for a in dataset.test)
+    anchor = torch.stack([tt, th], 1).reshape(-1)
+    true_idx = torch.stack([th, tt], 1).reshape(-1).to(torch.int32)
+    sign = torch.tensor([-1.0, 1.0], device="cuda").repeat(N_CHECK // 2)
+    queries = params["entity"][anchor] + sign[:, None] * params["relation"][tr.repeat_interleave(2)]
+    e_true = distances.residual_energy(params["entity"][true_idx] - queries, distance)
+    proj_t = params["entity"].T.contiguous()
+    return torch.cat([
+        1 + rank_count.rank_counts_reference(
+            proj_t, queries[s:s + EVAL_BATCH].T.contiguous(), e_true[s:s + EVAL_BATCH],
+            true_idx[s:s + EVAL_BATCH], distance)
+        for s in range(0, N_CHECK, EVAL_BATCH)
+    ])
 
 
 def eval_launches(data_dir: str, grouped: bool) -> int:
@@ -1195,25 +1222,13 @@ def ctransr_paths(work: str, data_dir: str):
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
-    from kb2e_tpu_torch.models import ctransr
 
     seed = ["--seeddatadir", os.path.join(work, "trained_fast"), "--seedmethod", "1"]
     out = os.path.join(work, "ctransr_fast")
-    build, centers_s = ctransr.build_centers, []
-
-    def timed_centers(*args, **kwargs):
-        t0 = time.perf_counter()
-        centers = build(*args, **kwargs)
-        centers_s.append(time.perf_counter() - t0)
-        return centers
-
-    ctransr.build_centers = timed_centers
-    try:
+    with timed_build_centers() as centers_s:
         fast, _ = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2", *seed],
                             os.path.join(work, "ctransr_fast.jsonl"), {},
                             "train_ctransr fast, 2 epochs (warm start: train_transe's fast files)", model="ctransr")
-    finally:
-        ctransr.build_centers = build
     check(len(centers_s) == 1, f"build_centers ran {len(centers_s)} times")
     check(fast[1]["loss"] < fast[0]["loss"], "the CTransR fast loss does not fall")
     for name in ("entity2vec.bern", "relation2vec.bern", "weights.bern", "relation_clusters.bern",
@@ -1583,6 +1598,180 @@ def mechanism_path():
     return dict(runs=runs, without=without, with_evidence=with_evidence)
 
 
+# --- the scale-quality protocol ------------------------------------------------------
+# benchmarks/quality_fb15k_scale.py's protocol on the port (its record:
+# QUALITY_SCALE_r05.json, QUALITY.md:200-225): planted_kg(14,951, 1,345,
+# 483,142, seed=11), cut in order (synthetic.split_in_order: 5 % test, as
+# many valid, the rest train), k 100, bern, L1, 100 batches, 40 epochs, seed
+# 5, each model through ``cli.train_<model>`` and ``cli.eval_<model>``.
+SCALE_KG = (N_ENTITIES, N_RELATIONS, N_TRAIN, 11)
+SCALE_EPOCHS = 40
+SCALE_FLAGS = ["--size", str(K), "--margin", "1", "--method", "1", "--batches", str(N_BATCHES), "--epochs",
+               str(SCALE_EPOCHS), "--seed", "5", "--distance", "0"]
+# (cell, model, negatives, learning rate, warm-started from the first cell's
+# files, the record's filtered MR, Hits@10 and MRR), in the record's order.
+SCALE_CELLS = (
+    ("TransE K=1", "transe", 1, "0.02", False, 671.99, 0.202, 0.1537),
+    ("TransE K=8", "transe", 8, "0.0025", False, 97.64, 0.4505, 0.2278),
+    ("TransH K=8", "transh", 8, "0.0025", False, 83.43, 0.454, 0.23),
+    ("TransR K=8", "transr", 8, "0.00125", True, 74.53, 0.4354, 0.2256),
+    ("CTransR K=8", "ctransr", 8, "0.00125", True, 94.31, 0.4108, 0.2181),
+)
+# The default smoke runs the first three cells; TransR's and CTransR's take
+# 18-23 minutes each (``--quality-scale``).
+DEFAULT_SCALE_MODELS = ("transe", "transh")
+# Bands (PERF.md, written before the first run on the card): filtered Hits@10
+# within SCALE_HITS_TOL of the record and filtered MR within SCALE_MR_RTOL of
+# it; and the two findings QUALITY.md:218-222 carries to full scale: K = 8
+# lifts TransE's filtered Hits@10 by at least SCALE_K_GAIN, and filtered MR
+# orders TransR < TransH < TransE K = 8.
+SCALE_HITS_TOL, SCALE_MR_RTOL, SCALE_K_GAIN = 0.03, 0.15, 0.2
+
+
+def scale_graph(work: str) -> str:
+    """The protocol's graph, generated on the host, cut in order and written
+    once into ``work/planted_scale``; returns that directory."""
+    from kb2e_tpu_torch.data import synthetic
+
+    n_ent, n_rel, n_triples, seed = SCALE_KG
+    t0 = time.perf_counter()
+    triples = synthetic.planted_kg(n_ent, n_rel, n_triples, seed=seed)
+    gen_s = time.perf_counter() - t0
+    train, valid, test = synthetic.split_in_order(triples)
+    kg = os.path.join(work, "planted_scale")
+    t0 = time.perf_counter()
+    synthetic.write_split_dir(kg, train, valid, test, n_ent, n_rel)
+    print(f"[scale] planted_kg{SCALE_KG}: {triples[0].shape[0]} distinct triples, {train[0].shape[0]} train / "
+          f"{valid[0].shape[0]} valid / {test[0].shape[0]} test; generated on the host in {gen_s:.1f} s, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return kg
+
+
+@contextlib.contextmanager
+def timed_build_centers():
+    """Times every ``models/ctransr.py::build_centers`` call inside the block;
+    yields the list of their seconds."""
+    from kb2e_tpu_torch.models import ctransr
+
+    build, seconds = ctransr.build_centers, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        centers = build(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return centers
+
+    ctransr.build_centers = timed
+    try:
+        yield seconds
+    finally:
+        ctransr.build_centers = build
+
+
+def scale_cell(work: str, kg: str, card: str, cell) -> dict:
+    """One cell of SCALE_CELLS: ``train_<model>`` (no kernel launch), then
+    ``eval_<model>`` on the written files (one K1 launch per batch of each
+    group, none for CTransR).  For TransE at K = 8, K1's counts of the first
+    N_CHECK queries on the trained tables against its plain version."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.data import triples
+    from kb2e_tpu_torch.eval import harness
+    from kb2e_tpu_torch.ops import rank_count
+
+    what, model_name, k_neg, rate, warm, *ref = cell
+    model, kernel = get_model(model_name), rank_count.KERNEL_NAMES[Distance.L1]
+    out = os.path.join(work, f"scale_{model_name}_k{k_neg}")
+    argv = ["--datadir", kg, "--outdir", out, *SCALE_FLAGS, "--negatives", str(k_neg), "--rate", rate]
+    if warm:
+        argv += ["--seeddatadir", os.path.join(work, "scale_transe_k1"), "--seedmethod", "1"]
+    t0 = time.perf_counter()
+    with timed_build_centers() as centers_s:
+        records, _ = train_run(argv, os.path.join(work, f"scale_{model_name}_k{k_neg}.jsonl"), {},
+                               f"scale {what}, {SCALE_EPOCHS} epochs", model=model_name)
+    train_s = time.perf_counter() - t0
+    check(len(records) == SCALE_EPOCHS, f"scale {what}: {len(records)} epochs")
+    check(records[-1]["loss"] < records[0]["loss"], f"scale {what}: the loss does not fall")
+    n_launch = None if model.cluster_aware else eval_launches(kg, grouped=model.needs_projection)
+    t0 = time.perf_counter()
+    m = eval_run(["--datadir", kg, "--outdir", out, "--size", str(K), "--method", "1", "--seed", "5"],
+                 {} if n_launch is None else {kernel: n_launch}, f"scale {what}: eval_{model_name}", model=model_name)
+    eval_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in m.values()), f"scale {what}: metrics {m}")
+    result = dict(kernel=None if n_launch is None else kernel, launches=n_launch or 0, max_off=None, metrics=m,
+                  train_s=train_s, eval_s=eval_s, epoch_s=sum(r["wall_s"] for r in records))
+    check_line = ""
+    if model_name == "transe" and k_neg == 8:
+        # K1 on a trained table at full width: the harness's first N_CHECK
+        # raw ranks against the plain version, on the tables eval_transe read.
+        dataset = triples.load_dataset(kg, splits=("train", "valid", "test"))
+        params = read_params(model_name, out)
+        raw, filt, sizes = harness.rank_all(model, params, dataset, EmbeddingConfig(embedding_size=K), device="cuda")
+        check(harness.metrics_from_ranks(raw, filt, sizes) == m, f"scale {what}: a second run gives other metrics")
+        n_off, result["max_off"] = compare(torch.from_numpy(raw[:N_CHECK]).cuda(),
+                                           plain_first_ranks(params, dataset, Distance.L1), True,
+                                           f"scale {what}: first {N_CHECK} ranks on the trained tables")
+        check_line = (f"; K1 on the trained tables: the first {N_CHECK} raw ranks equal the plain version's "
+                      f"({n_off} differ)")
+    ref_mr, ref_hits, ref_mrr = ref
+    print(f"[scale] {card}: {what}, lr {rate}{', warm-started from TransE K=1' if warm else ''}: "
+          f"{m['num_corruptions']} queries; filtered MR {m['filtered_mean_rank']:.2f} (record {ref_mr}), "
+          f"Hits@10 {m['filtered_hits10']:.4f} (record {ref_hits}), MRR {m['filtered_mrr']:.4f} (record {ref_mrr}), "
+          f"raw MR {m['raw_mean_rank']:.2f}; train wall {train_s:.1f} s (loading and the cuckoo build included; "
+          f"epochs {result['epoch_s']:.1f} s"
+          + (f"; build_centers {centers_s[0]:.1f} s" if centers_s else "")
+          + f"), eval wall {eval_s:.1f} s; "
+          + ("no kernel launch (the routed sweep)" if n_launch is None
+             else f"{n_launch} launches of {kernel}, one a batch of each group (eval_launches)")
+          + check_line, flush=True)
+    return result
+
+
+def scale_bands(results: dict) -> list:
+    """Each finished cell against its band and the cross-cell findings;
+    returns the misses."""
+    bad = []
+    for what, _, _, _, _, ref_mr, ref_hits, _ in SCALE_CELLS:
+        if what not in results:
+            continue
+        m = results[what]["metrics"]
+        if abs(m["filtered_hits10"] - ref_hits) > SCALE_HITS_TOL:
+            bad.append(f"{what}: filtered Hits@10 {m['filtered_hits10']:.4f} outside {ref_hits} +- {SCALE_HITS_TOL}")
+        if abs(m["filtered_mean_rank"] - ref_mr) > SCALE_MR_RTOL * ref_mr:
+            bad.append(f"{what}: filtered MR {m['filtered_mean_rank']:.2f} outside {ref_mr} +- {SCALE_MR_RTOL:.0%}")
+    (k1, *_, k1_hits, _), (k8, *_, k8_hits, _) = SCALE_CELLS[:2]
+    if k1 in results and k8 in results:
+        gain = results[k8]["metrics"]["filtered_hits10"] - results[k1]["metrics"]["filtered_hits10"]
+        print(f"[scale] K = 8 lifts TransE's filtered Hits@10 by {gain:.4f} (at least {SCALE_K_GAIN}; record "
+              f"{k8_hits - k1_hits:.4f})", flush=True)
+        if gain < SCALE_K_GAIN:
+            bad.append(f"K = 8 lifts TransE's filtered Hits@10 by {gain:.4f}, below {SCALE_K_GAIN}")
+    order = [what for what in ("TransR K=8", "TransH K=8", "TransE K=8") if what in results]
+    mrs = [results[what]["metrics"]["filtered_mean_rank"] for what in order]
+    if len(order) > 1:
+        print("[scale] filtered MR by model, the record's order: " + ", ".join(
+            f"{w} {r:.2f}" for w, r in zip(order, mrs)) + (" (increasing)" if mrs == sorted(mrs) else
+                                                           " (NOT increasing)"), flush=True)
+        if mrs != sorted(mrs):
+            bad.append(f"filtered MR out of the record's order: {dict(zip(order, mrs))}")
+    return bad
+
+
+def quality_scale_path(work: str, models=None) -> dict:
+    """The cells of SCALE_CELLS whose model is in ``models`` (all when None),
+    with the first cell too when a warm-started one runs, then the bands."""
+    card = card_line()
+    kg = scale_graph(work)
+    picked = [c for c in SCALE_CELLS if models is None or c[1] in models]
+    if any(c[4] for c in picked) and SCALE_CELLS[0] not in picked:
+        picked.insert(0, SCALE_CELLS[0])
+    results = {c[0]: scale_cell(work, kg, card, c) for c in picked}
+    bad = scale_bands(results)
+    check(not bad, "\n".join(bad))
+    print(f"[scale] {card}: {len(results)} cells inside their bands", flush=True)
+    return results
+
+
 # --- the distributed phase ---------------------------------------------------------
 # Two ranks on the one card: NCCL refuses two ranks on one device, so parts
 # (a) and (b) run gloo over CUDA tensors (every collective staged through the
@@ -1592,15 +1781,26 @@ DIST_DEADLINE_S = 300  # a part's processes are killed after this
 # Part (a): (what, model, tables, distance, subset) of each sharded eval.
 # Tables: the data phase's files ("out", "out_transr": W = I), the TransR
 # files with a seeded non-dyadic W ("transr W"), seeded dyadic CTransR tables
-# ("ctransr"); subset: the test triples of the first relations
-# (first_relations_test), else all.
+# ("ctransr") and seeded non-dyadic ones ("ctransr non-dyadic": the shard's
+# u = e·ce and L2's q·e products round); subset: the test triples of the
+# first relations (first_relations_test), else all.
 DIST_EVALS = (("eval_transe L1", "transe", "out", 0, False), ("eval_transe L2", "transe", "out", 1, False),
               ("eval_transr L1", "transr", "out_transr", 0, False),
               ("eval_transr L2", "transr", "out_transr", 1, False),
               ("eval_transr L1, non-dyadic W", "transr", "transr W", 0, True),
               ("eval_transr L2, non-dyadic W", "transr", "transr W", 1, True),
-              ("eval_ctransr L1", "ctransr", "ctransr", 0, True), ("eval_ctransr L2", "ctransr", "ctransr", 1, True))
+              ("eval_ctransr L1", "ctransr", "ctransr", 0, True), ("eval_ctransr L2", "ctransr", "ctransr", 1, True),
+              ("eval_ctransr L1, non-dyadic", "ctransr", "ctransr non-dyadic", 0, True),
+              ("eval_ctransr L2, non-dyadic", "ctransr", "ctransr non-dyadic", 1, True))
 DIST_ATOL, DIST_LOSS_RTOL = 2e-6, 1e-5  # tests/test_parallel.py:73-78
+# Part (b): (model, mesh (data, model), batches after the first) of each run
+# from seeded init tables at bench.py's configuration (the batch rounded down
+# to the data axis) against the one-rank runner: TransE, TransH and PTransE
+# (with the train split's path store, whose gradients go through the dense
+# ``summed`` hook of ops/scatter.py) data-parallel for a whole epoch, and
+# TransH with its entity rows cut for three batches.
+DP_RUNS = (("transe", (2, 1), N_BATCHES - 1), ("transh", (2, 1), N_BATCHES - 1), ("transh", (1, 2), 2),
+           ("ptranse", (2, 1), N_BATCHES - 1))
 # Part (b): the models whose per-relation tables are cut over ``model``,
 # trained at mesh (1, 2) for the first chunk, then the next ones up to
 # CUT_CHUNKS (256 samples each: some 3 of bench.py's batches).
@@ -1611,8 +1811,17 @@ CUT_CHUNKS = 57
 def dist_tables(model_name: str, source: str, work: str):
     """Part (a)'s whole tables from ``source`` (DIST_EVALS), on the card, the
     same in every process."""
+    from kb2e_tpu_torch import get_model
+
     if source == "ctransr":
         return {k: v.cuda() for k, v in dyadic_ctransr_tables().items()}
+    if source == "ctransr non-dyadic":
+        rng = np.random.default_rng(SEED + 6)
+        c = get_model("ctransr").n_clusters
+        shapes = dict(entity=(N_ENTITIES, K), relation=(N_RELATIONS, K), proj=(N_RELATIONS, K, K),
+                      relation_c=(N_RELATIONS, c, K), centers=(N_RELATIONS, c, K))
+        return {k: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) / 10).cuda()
+                for k, shape in shapes.items()}
     if source in ("out", "out_transr"):
         return read_params(model_name, os.path.join(work, source))
     params = read_params("transr", os.path.join(work, "out_transr"))
@@ -1636,16 +1845,39 @@ def dist_cfg():
                            distance=Distance.L1, num_batches=N_BATCHES, seed=SEED)
 
 
-def dist_inputs(data, dev):
-    """Part (b)'s TransE inputs, the same in every process: bench.py's
-    configuration with the batch rounded down to the data axis, seeded
-    TransE-init tables, and the epoch's 100 batches drawn on the card."""
+def write_dist_paths(work: str, ts) -> float:
+    """PTransE's PCRA store of the train split (``cli/train.py``'s settings),
+    built once and written to ``work/dist_paths.npz`` for every process;
+    returns its seconds."""
+    from kb2e_tpu_torch.data import paths
+
+    cfg = dist_cfg()
+    t0 = time.perf_counter()
+    store = paths.build_path_store(ts.heads, ts.tails, ts.rels, ts.n_relations, max_len=cfg.path_length,
+                                   min_conf=cfg.path_min_conf, max_paths=cfg.max_paths, max_branch=cfg.path_max_branch)
+    np.savez(os.path.join(work, "dist_paths.npz"), rels=store.rels, conf=store.conf)
+    return time.perf_counter() - t0
+
+
+def with_dist_paths(data, work: str, dev):
+    """``data`` with ``write_dist_paths``' store, one row per train triple."""
+    import dataclasses
+
+    store = np.load(os.path.join(work, "dist_paths.npz"))
+    return dataclasses.replace(data, paths=torch.from_numpy(store["rels"]).to(dev),
+                               path_conf=torch.from_numpy(store["conf"]).to(dev))
+
+
+def dist_inputs(model_name: str, shape, data, dev):
+    """Part (b)'s inputs of a DP_RUNS run, the same in every process:
+    bench.py's configuration with the batch rounded down to the data axis,
+    seeded init tables, and the epoch's 100 batches drawn on the card."""
     from kb2e_tpu_torch import get_model
     from kb2e_tpu_torch.train import step
 
     cfg = dist_cfg()
-    batch = TRAIN_BATCH - TRAIN_BATCH % DIST_WORLD
-    model = get_model("transe")
+    batch = TRAIN_BATCH - TRAIN_BATCH % shape[0]
+    model = get_model(model_name)
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED), N_ENTITIES, N_RELATIONS, cfg, dev)
     runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
     return model, cfg, batch, params, runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
@@ -1753,18 +1985,23 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
             rank_count.rank_counts = counts
     else:
         _, data = dist_data(os.path.join(work, "data"), dev)
-        mesh = mesh_lib.make_mesh(DIST_WORLD, 1, device=dev)
-        model, cfg, batch, params, batches = dist_inputs(data, dev)
-        runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, mesh=mesh)
-        params = sharding.place_params(mesh, params)
-        walls = []
-        for sl in (slice(0, 1), slice(1, None)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
-            got[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
-            walls.append(time.perf_counter() - t0)
-        got["walls"] = walls
+        path_data = with_dist_paths(data, work, dev)
+        for model_name, shape, rest in DP_RUNS:
+            mesh = mesh_lib.make_mesh(*shape, device=dev)
+            model, cfg, batch, params, batches = dist_inputs(model_name, shape,
+                                                             path_data if model_name == "ptranse" else data, dev)
+            runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, mesh=mesh)
+            params = sharding.place_params(mesh, params)
+            walls = []
+            for sl in (slice(0, 1), slice(1, 1 + rest)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
+                got[model_name, shape, sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+                walls.append(time.perf_counter() - t0)
+            got[model_name, shape, "walls"] = walls
+            got[model_name, shape, "cut"] = dict(rows=mesh.entity_rows(N_ENTITIES),
+                                                 relations=mesh.relation_rows(N_RELATIONS))
         # TransR and CTransR at mesh (1, 2): entity rows and the per-relation
         # tables cut; each rank keeps its cut of the tables it returns.
         mesh = mesh_lib.make_mesh(1, DIST_WORLD, device=dev)
@@ -1903,6 +2140,50 @@ def sharded_evals(work: str, dataset, card: str, results: dict):
     return wall_a
 
 
+def cut_diff(tables: dict, whole: dict, cut: dict) -> float:
+    """Largest |difference| of a rank's ``tables`` from the one-rank
+    ``whole`` ones on the rows the rank holds: its entity rows and its
+    relations of the relation-cut tables (``cut``)."""
+    bounds = {key: cut["relations"] for key in ("proj", "relation_c", "centers")}
+    bounds["entity"] = cut["rows"]
+    return max(float(np.abs(v - whole[k][slice(*bounds.get(k, (0, None)))]).max()) for k, v in tables.items())
+
+
+def dp_training(data, path_data, ranks, card: str):
+    """Part (b)'s DP_RUNS against the one-rank runner on the same inputs:
+    after the first batch each rank's tables within DIST_ATOL and the loss
+    within DIST_LOSS_RTOL; after the rest the largest difference printed."""
+    from kb2e_tpu_torch.train import step
+
+    for model_name, shape, rest in DP_RUNS:
+        model, cfg, batch, params, batches = dist_inputs(model_name, shape,
+                                                         path_data if model_name == "ptranse" else data,
+                                                         torch.device("cuda"))
+        runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
+        want, one_walls = {}, []
+        for sl in (slice(0, 1), slice(1, 1 + rest)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
+            want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
+            one_walls.append(time.perf_counter() - t1)
+        kind = "data-parallel" if shape[1] == 1 else "entity rows cut"
+        for r, got in enumerate(ranks):
+            cut, walls = got[model_name, shape, "cut"], got[model_name, shape, "walls"]
+            (first_tables, first_loss), (end_tables, rest_loss) = (got[model_name, shape, at] for at in (0, 1))
+            first, end = cut_diff(first_tables, want[0][0], cut), cut_diff(end_tables, want[1][0], cut)
+            check(first <= DIST_ATOL, f"(b) {model_name} at {shape} rank {r}: the first batch's tables differ by "
+                                      f"{first:.3e} > {DIST_ATOL}")
+            check(abs(first_loss - want[0][1]) <= DIST_LOSS_RTOL * abs(want[0][1]),
+                  f"(b) {model_name} at {shape} rank {r}: first-batch loss {first_loss!r} against {want[0][1]!r}")
+            print(f"[distributed] (b) {card}: {kind} train_{model_name} at mesh {shape}, gloo on cuda:0, batch "
+                  f"{batch} of bench.py's configuration: rank {r} (entity rows {cut['rows'][0]}:{cut['rows'][1]}): "
+                  f"first batch max |diff| {first:.3e} (bound {DIST_ATOL}), loss {first_loss:.6f} against "
+                  f"{want[0][1]:.6f}; after {1 + rest} batches max |diff| {end:.3e}, loss {first_loss + rest_loss:.6f} "
+                  f"against {want[0][1] + want[1][1]:.6f}; walls: first batch {walls[0]:.3f} s, the other {rest} "
+                  f"{walls[1]:.3f} s (one rank: {one_walls[0]:.3f} s, {one_walls[1]:.3f} s)", flush=True)
+
+
 def cut_training(work: str, ts, data, ranks, card: str):
     """Part (b)'s TransR and CTransR at mesh (1, 2) against the one-rank
     runner: after the first chunk each rank's cut of every table within
@@ -1922,14 +2203,7 @@ def cut_training(work: str, ts, data, ranks, card: str):
             one_walls.append(time.perf_counter() - t1)
         for r, got in enumerate(ranks):
             cut = got[model_name, "cut"]
-            bounds = {key: cut["relations"] for key in ("proj", "relation_c", "centers")}
-            bounds["entity"] = cut["rows"]
-
-            def diff(at):
-                tables, ref = got[model_name, at][0], want[at][0]
-                return max(float(np.abs(v - ref[k][slice(*bounds.get(k, (0, None)))]).max()) for k, v in tables.items())
-
-            first, end = diff(0), diff(1)
+            first, end = (cut_diff(got[model_name, at][0], want[at][0], cut) for at in (0, 1))
             check(first <= DIST_ATOL, f"(b) {model_name} rank {r}: the first chunk's tables differ by {first:.3e} > "
                                       f"{DIST_ATOL}")
             check(abs(got[model_name, 0][1] - want[0][1]) <= DIST_LOSS_RTOL * abs(want[0][1]),
@@ -1950,15 +2224,15 @@ def distributed_phase(work: str):
     """(a) the entity-sharded eval, 2 ranks, model axis 2, against the
     one-rank harness, each rank's rank counts against the plain version,
     from tables placed as the mesh cuts them (TransR's and CTransR's
-    per-relation tables on the relation axis); (b) data-parallel TransE
-    training, 2 ranks, data axis 2, and TransR and CTransR at mesh (1, 2),
-    against the single-rank runner; (c) ``parallel/multiprocess.py`` at 1
-    process over NCCL (TransE, then TransR) against ``harness.evaluate`` of
-    its written tables."""
+    per-relation tables on the relation axis); (b) the runs of DP_RUNS
+    (TransE, TransH and PTransE data-parallel, TransH with its entity rows
+    cut), 2 ranks, and TransR and CTransR at mesh (1, 2), against the
+    single-rank runner; (c) ``parallel/multiprocess.py`` at 1 process over
+    NCCL (TransE, then TransR) against ``harness.evaluate`` of its written
+    tables."""
     from kb2e_tpu_torch import EmbeddingConfig, get_model
     from kb2e_tpu_torch.data import triples
     from kb2e_tpu_torch.eval import harness
-    from kb2e_tpu_torch.train import step
 
     card = card_line()
     data_dir = os.path.join(work, "data")
@@ -1971,38 +2245,19 @@ def distributed_phase(work: str):
     # (b) distributed training.
     t0 = time.perf_counter()
     ts, data = dist_data(data_dir, torch.device("cuda"))
+    store_s = write_dist_paths(work, ts)
     warm = write_cut_inputs(work, ts)
     prep_b = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = dist_part("train", work)
     wall_b = time.perf_counter() - t0
-    model, cfg, batch, params, batches = dist_inputs(data, torch.device("cuda"))
-    runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
-    want, one_walls = {}, []
-    for sl in (slice(0, 1), slice(1, None)):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
-        want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
-        one_walls.append(time.perf_counter() - t1)
-    for r, got in enumerate(ranks):
-        first = max(float(np.abs(got[0][0][k] - want[0][0][k]).max()) for k in want[0][0])
-        check(first <= DIST_ATOL, f"(b) rank {r}: the first batch's tables differ by {first:.3e} > {DIST_ATOL}")
-        check(abs(got[0][1] - want[0][1]) <= DIST_LOSS_RTOL * abs(want[0][1]),
-              f"(b) rank {r}: first-batch loss {got[0][1]!r} against {want[0][1]!r}")
-        end = max(float(np.abs(got[1][0][k] - want[1][0][k]).max()) for k in want[1][0])
-        loss_end = got[0][1] + got[1][1]
-        print(f"[distributed] (b) {card}: data-parallel train_transe, data axis {DIST_WORLD}, gloo on cuda:0, "
-              f"batch {batch} of bench.py's configuration: rank {r}: first batch max |diff| {first:.3e} (bound "
-              f"{DIST_ATOL}), loss {got[0][1]:.6f} against {want[0][1]:.6f}; the epoch's largest difference "
-              f"{end:.3e}, epoch loss {loss_end:.6f} against {want[0][1] + want[1][1]:.6f}; walls: first batch "
-              f"{got['walls'][0]:.3f} s, the other 99 {got['walls'][1]:.3f} s (one rank: {one_walls[0]:.3f} s, "
-              f"{one_walls[1]:.3f} s)", flush=True)
+    dp_training(data, with_dist_paths(data, work, torch.device("cuda")), ranks, card)
     cut_training(work, ts, data, ranks, card)
     print(f"[distributed] (b) {card}: wall {wall_b:.1f} s (two processes: start, loading, the cuckoo build, "
-          f"TransE's epoch, TransR's and CTransR's {CUT_CHUNKS} chunks), after {prep_b:.1f} s here for the data, "
-          "the warm starts (" + ", ".join(f"{k} {v:.1f} s" for k, v in warm.items()) + ", CTransR's with "
-          "build_centers) and their files", flush=True)
+          f"the runs of DP_RUNS, TransR's and CTransR's {CUT_CHUNKS} chunks), after {prep_b:.1f} s here for the "
+          f"data, PTransE's path store ({store_s:.1f} s), the warm starts ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in warm.items()) + ", CTransR's with build_centers) and their files",
+          flush=True)
 
     # (c) the production driver alone over NCCL: TransE, then TransR.
     walls_c = []
@@ -2656,9 +2911,13 @@ def rank_count_timing(tables, ctx, results):
             paths = [("eval_transe", results[distance]), ("eval_ptranse", results["ptranse_eval"][distance])] + [
                 (f"eval_{model} --distance {int(flag)}", ev) for model in ("transh", "transr")
                 for flag, ev in results[f"{model}_eval"].items() if ev["kernel"] == name] + [
+                (f"scale {what}", ev) for what, ev in results["quality_scale"].items() if ev["kernel"] == name] + [
                 (ev["what"], ev) for ev in results["distributed"]["evals"] if ev["kernel"] == name]
             record["launches"] = sum(ev["launches"] for _, ev in paths)
-            record["max_abs_err"] = max([worst[distance]] + [ev["max_off"] for _, ev in paths])
+            # The scale cells' counts are checked against the plain version
+            # on TransE K=8's tables only.
+            record["max_abs_err"] = max([worst[distance]] + [ev["max_off"] for _, ev in paths
+                                                             if ev["max_off"] is not None])
             print(f"[timing] {name}: eval {results[distance]['wall']:.2f} s (ranking alone "
                   f"{results[distance]['rank_wall']:.3f} s) over {results[distance]['launches']} launches; "
                   f"{record['launches']} launches over the eval paths ("
@@ -2747,9 +3006,9 @@ def ctransr_timing(ctx, results):
     print(f"[timing] {card}: train_ctransr fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast)
           + f"; build_centers {results['centers_s']:.3f} s", flush=True)
-    # One run a part and the profiler on 118 chunks (TransR: three runs,
-    # 118 chunks), to leave room for the distributed phase.
-    epoch_breakdown(ctx, "ctransr", results["ctransr_params"], fast_reps=1, profile_window=118, parity=False)
+    # One run a part and the profiler on 59 chunks (as TransR's), to leave
+    # room in the time limit.
+    epoch_breakdown(ctx, "ctransr", results["ctransr_params"], fast_reps=1, profile_window=59, parity=False)
     # The routed sweep's device share on the first groups (the profiler on
     # all 1,345 batches would take longer than the eval).
     from kb2e_tpu_torch import EmbeddingConfig, get_model
@@ -2841,15 +3100,17 @@ def timing_phase(tables, ctx, results):
     lap = time.perf_counter()
     records.append(transh_timing(ctx, results))
     took("the TransH update timing")
-    epoch_breakdown(ctx, "transh", dict(zip(TRANSH_KEYS, ctx["transh_args"][:3])))
+    # The profiler on the first 25 of the fast epoch's 100 updates (all of
+    # them took 13 s of profiling), to leave room in the time limit.
+    epoch_breakdown(ctx, "transh", dict(zip(TRANSH_KEYS, ctx["transh_args"][:3])), profile_window=25)
     lap = time.perf_counter()
     records.append(transr_timing(ctx, results))
     took("the TransR update timing")
-    # Three fast epochs of TransR (4-7 s each) where the others take five,
-    # and the profiler on a sixteenth of its fast epoch's 1,888 chunks (the
-    # whole took 4 minutes, an eighth 28-35 s), to leave room for the
-    # distributed phase under 1,000 s.
-    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=3, profile_window=118)
+    # One fast epoch of TransR a part (5-7 s each) where the others take
+    # five, and the profiler on a thirty-second of its fast epoch's 1,888
+    # chunks (the whole took 4 minutes, an eighth 28-35 s), to leave room for
+    # the scale and distributed phases in the time limit.
+    epoch_breakdown(ctx, "transr", dict(zip(TRANSR_KEYS, ctx["transr_args"][:3])), fast_reps=1, profile_window=59)
     lap = time.perf_counter()
     ctransr_timing(ctx, results)
     took("the CTransR timing")
@@ -2871,6 +3132,17 @@ def main() -> int:
 
     card = phase("device", device_phase)
     phase("build", build_phase)
+    if sys.argv[1:2] == ["--quality-scale"]:
+        # The scale-quality cells of the named models (all five without one).
+        models = sys.argv[2:] or None
+        check(all(m in {c[1] for c in SCALE_CELLS} for m in models or ()), f"--quality-scale takes model names of "
+              f"{sorted({c[1] for c in SCALE_CELLS})}, got {models}")
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as work:
+            results = phase("scale", quality_scale_path, work, models)
+        print(json.dumps({what: {k: v for k, v in ev.items() if k != "kernel"} for what, ev in results.items()}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--rank-count-only"]:
         # The rank count's checks and timing alone, for work on that kernel.
         tables = init_tables("transe", torch.device("cuda"))
@@ -2899,6 +3171,7 @@ def main() -> int:
             return 0
         ctx = phase("kernels", kernels_phase, tables, transh, transr, data_dir, work)
         results = phase("main", main_phase, work, data_dir, out_dir, transh_dir, transr_dir)
+        results["quality_scale"] = phase("scale", quality_scale_path, work, DEFAULT_SCALE_MODELS)
         results["distributed"] = phase("distributed", distributed_phase, work)
         records = phase("timing", timing_phase, tables, ctx, results)
 

@@ -15,6 +15,7 @@ PTransE's path evidence has signal.  Same seed, same bytes as
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 from typing import NamedTuple, Tuple
 
@@ -73,12 +74,21 @@ def planted_kg(
         ze32 = z_e.astype(np.float32)
         z_sq = np.sum(ze32 * ze32, axis=1)  # [N]
         chunk = 2048
-        for s in range(0, n_triples, chunk):
+
+        def nearest(s: int) -> np.ndarray:
             q = target[s : s + chunk].astype(np.float32)
             d2 = z_sq[None, :] - 2.0 * (q @ ze32.T)
-            nn = np.argpartition(d2, neighbourhood, axis=1)[:, :neighbourhood]
-            pick = rng.integers(0, neighbourhood, nn.shape[0])
-            t[s : s + chunk] = nn[np.arange(nn.shape[0]), pick]
+            return np.argpartition(d2, neighbourhood, axis=1)[:, :neighbourhood]
+
+        # The searches draw nothing, so they run on threads (numpy leaves the
+        # GIL in the product and the partition: 236 chunks at FB15k's shape
+        # take minutes on one core); the picks are drawn in chunk order, as
+        # kb2e_tpu's loop draws them.
+        starts = range(0, n_triples, chunk)
+        with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            for s, nn in zip(starts, pool.map(nearest, starts)):
+                pick = rng.integers(0, neighbourhood, nn.shape[0])
+                t[s : s + chunk] = nn[np.arange(nn.shape[0]), pick]
         return _dedup(h.astype(np.int32), t.astype(np.int32), r.astype(np.int32))
     chunk = 4096
     for s in range(0, n_triples, chunk):
@@ -311,6 +321,19 @@ def compositional_kg(
     )
 
 
+def split_in_order(
+    triples: Tuple[np.ndarray, np.ndarray, np.ndarray], test_frac: float = 0.05
+) -> Tuple[Tuple[np.ndarray, ...], Tuple[np.ndarray, ...], Tuple[np.ndarray, ...]]:
+    """(train, valid, test) of ``triples`` in their order, as
+    ``benchmarks/quality_fb15k_scale.py`` cuts its planted KG: the last
+    ``int(n * test_frac)`` triples are the test split, as many before them
+    the valid split, and the rest the train split."""
+    n = triples[0].shape[0]
+    n_test = int(n * test_frac)
+    cuts = (0, n - 2 * n_test, n - n_test, n)
+    return tuple(tuple(a[lo:hi] for a in triples) for lo, hi in zip(cuts, cuts[1:]))
+
+
 def write_kg_dir(
     out_dir: str,
     triples: Tuple[np.ndarray, np.ndarray, np.ndarray],
@@ -323,27 +346,34 @@ def write_kg_dir(
     relation_prefix: str = "r",
 ) -> None:
     """Write a reference-layout data directory with train/valid/test splits."""
+    n = triples[0].shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    n_train = int(n * split[0])
+    n_valid = int(n * split[1])
+    parts = (perm[:n_train], perm[n_train : n_train + n_valid], perm[n_train + n_valid :])
+    write_split_dir(out_dir, *(tuple(a[idx] for a in triples) for idx in parts), n_entities, n_relations,
+                    entity_prefix=entity_prefix, relation_prefix=relation_prefix)
+
+
+def write_split_dir(
+    out_dir: str,
+    train: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    valid: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    test: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    n_entities: int,
+    n_relations: int,
+    *,
+    entity_prefix: str = "e",
+    relation_prefix: str = "r",
+) -> None:
+    """Write a reference-layout data directory of the given (h, t, r) splits."""
     os.makedirs(out_dir, exist_ok=True)
     entity2id = {f"{entity_prefix}{i}": i for i in range(n_entities)}
     relation2id = {f"{relation_prefix}{i}": i for i in range(n_relations)}
     vocab.write_id_file(os.path.join(out_dir, "entity2id.txt"), entity2id)
     vocab.write_id_file(os.path.join(out_dir, "relation2id.txt"), relation2id)
-
-    h, t, r = triples
-    n = h.shape[0]
-    rng = np.random.default_rng(seed)
-    perm = rng.permutation(n)
-    n_train = int(n * split[0])
-    n_valid = int(n * split[1])
-    parts = {
-        "train.txt": perm[:n_train],
-        "valid.txt": perm[n_train : n_train + n_valid],
-        "test.txt": perm[n_train + n_valid :],
-    }
-    inv_e = {i: k for k, i in entity2id.items()}
-    inv_r = {i: k for k, i in relation2id.items()}
-    for fname, idx in parts.items():
+    for fname, (h, t, r) in (("train.txt", train), ("valid.txt", valid), ("test.txt", test)):
         with open(os.path.join(out_dir, fname), "w", encoding="utf-8") as f:
-            for i in idx:
+            for a, b, c in zip(h.tolist(), t.tolist(), r.tolist()):
                 # Reference row order is head, tail, relation (common/loader.cpp:35).
-                f.write(f"{inv_e[int(h[i])]}\t{inv_e[int(t[i])]}\t{inv_r[int(r[i])]}\n")
+                f.write(f"{entity_prefix}{a}\t{entity_prefix}{b}\t{relation_prefix}{c}\n")

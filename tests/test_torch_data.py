@@ -139,6 +139,52 @@ def test_skewed_kg_equals_jax_for_one_seed():
     assert n > 6000 and np.bincount(got[2]).max() > 2 * n / 24  # the top relation is far above the mean
 
 
+# planted_kg's two branches: the float64 norm below 4,001 entities
+# (QUALITY.md's graph), the float32 matmul expansion above (FB15k's 14,951
+# entities in chip_smoke.py's scale protocol; here five chunks of 2,048
+# triples, searched on threads).
+@pytest.mark.parametrize("shape", [(600, 24, 4_000, 11), (4_500, 40, 9_000, 11)], ids=["small", "float32 large"])
+def test_planted_kg_equals_jax_bit_for_bit(shape):
+    n_ent, n_rel, n_triples, seed = shape
+    got = port_synthetic.planted_kg(n_ent, n_rel, n_triples, seed=seed)
+    want = jax_synthetic.planted_kg(n_ent, n_rel, n_triples, seed=seed)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    assert got[0].shape[0] > 0.9 * n_triples
+
+
+@pytest.mark.parametrize("n", [4_000, 482_426, 21])
+def test_split_in_order_is_the_scale_scripts_slicing(n):
+    # benchmarks/quality_fb15k_scale.py:56-73, restated: n_test = int(n * 0.05),
+    # n_valid = n_test; train the first n - n_valid - n_test triples, then
+    # valid, then test.
+    h, t, r = (np.arange(n, dtype=np.int32) + off for off in (0, 7, 11))
+    n_test = int(n * 0.05)
+    n_valid = n_test
+    want = ((h[: n - n_valid - n_test], t[: n - n_valid - n_test], r[: n - n_valid - n_test]),
+            (h[n - n_valid - n_test : n - n_test], t[n - n_valid - n_test : n - n_test],
+             r[n - n_valid - n_test : n - n_test]),
+            (h[n - n_test :], t[n - n_test :], r[n - n_test :]))
+    got = port_synthetic.split_in_order((h, t, r), test_frac=0.05)
+    for got_split, want_split in zip(got, want):
+        for a, b in zip(got_split, want_split):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_split_directory_loads_as_the_scale_scripts_dataset(tmp_path):
+    triples = port_synthetic.planted_kg(600, 24, 4_000, seed=11)
+    train, valid, test = port_synthetic.split_in_order(triples)
+    port_synthetic.write_split_dir(str(tmp_path), train, valid, test, 600, 24)
+    ds = jax_triples.load_dataset(str(tmp_path), splits=("train", "valid", "test"), use_native=False)
+    assert (ds.n_entities, ds.n_relations) == (600, 24)
+    for name, split in (("valid", valid), ("test", test)):
+        for a, b in zip(getattr(ds, name), split):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip((ds.train.heads, ds.train.tails, ds.train.rels), train):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_embedding_files_byte_identical_and_cross_load(tmp_path, writer):
     rng = np.random.default_rng(5)

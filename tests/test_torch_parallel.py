@@ -117,6 +117,20 @@ def _dyadic_tables(model_name, n_ent, n_rel, seed):
     return host
 
 
+def _non_dyadic_ctransr_tables(n_ent, n_rel, seed):
+    """Seeded CTransR tables of unrounded floats: the products of the routed
+    sweep (u = e·ce, v, L2's q·e) round, so a shard's rows give one rank's
+    bits only if each product's rows do not depend on the rows around them."""
+    rng = np.random.default_rng(seed)
+
+    def nd(*shape, scale=0.3):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    c = ctransr.DEFAULT_NUM_CLUSTERS
+    return {"entity": nd(n_ent, K), "relation": nd(n_rel, K), "proj": nd(n_rel, K, K),
+            "relation_c": nd(n_rel, c, K), "centers": nd(n_rel, c, K)}
+
+
 def _init_tables(model_name, ts):
     model = get_model(model_name)
     params = model.init_params(torch.Generator().manual_seed(1), N_ENT, N_REL, _cfg(), "cpu")
@@ -244,9 +258,9 @@ def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> N
     dataset = triples.load_dataset(kg_dir, splits=("train", "valid", "test"), use_native=False)
     for m in EVAL_AXES:
         mesh = mesh_lib.make_mesh(1, m, ranks=range(m))
+        if mesh is None:  # a rank outside this mesh
+            continue
         for model_name, dist in EVAL_CASES:
-            if mesh is None:
-                continue
             model = get_model(model_name)
             host = _dyadic_tables(model_name, dataset.n_entities, dataset.n_relations, seed=11 + dist)
             cfg = EmbeddingConfig(distance=Distance(dist), **EVAL_KNOBS)
@@ -257,6 +271,12 @@ def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> N
             if model_name in CUT_MODELS:  # the whole tables, as the driver passes them
                 got["eval whole", model_name, dist, m] = harness.rank_all(
                     model, params_from_numpy(host, "cpu"), dataset, cfg, mesh=mesh)[:2]
+        for dist in Distance:
+            host = _non_dyadic_ctransr_tables(dataset.n_entities, dataset.n_relations, seed=31 + int(dist))
+            cfg = EmbeddingConfig(distance=dist, **EVAL_KNOBS)
+            placed = sharding.place_params(mesh, params_from_numpy(host, "cpu"))
+            got["eval non-dyadic ctransr", int(dist), m] = harness.rank_all(
+                get_model("ctransr"), placed, dataset, cfg, mesh=mesh)[:2]
 
     tie_mesh = mesh_lib.make_mesh(1, 3, ranks=range(3))
     if tie_mesh is not None:
@@ -407,6 +427,23 @@ def test_sharded_eval_equals_one_rank_and_jax_mesh_eval(ranks, tiny_kg_dir, tiny
         mesh=jax_mesh.make_mesh(1, m, devices=jax.devices()[:m]),
     )
     assert one_rank == want  # every metric, to the last bit
+
+
+@pytest.mark.parametrize("m", EVAL_AXES)
+@pytest.mark.parametrize("dist", list(Distance))
+def test_sharded_ctransr_eval_on_non_dyadic_tables_equals_one_rank(ranks, tiny_kg_dir, dist, m):
+    # The CPU counterpart of chip_smoke.py's non-dyadic CTransR check: each
+    # shard's blocks of the routed sweep (u = e·ce, L2's q·e) hold other rows
+    # than one rank's, and every rank's ranks still equal one rank's exactly.
+    dataset = triples.load_dataset(tiny_kg_dir, splits=("train", "valid", "test"), use_native=False)
+    host = _non_dyadic_ctransr_tables(dataset.n_entities, dataset.n_relations, seed=31 + int(dist))
+    cfg = EmbeddingConfig(distance=dist, **EVAL_KNOBS)
+    want = harness.rank_all(get_model("ctransr"), params_from_numpy(host, "cpu"), dataset, cfg, device="cpu")[:2]
+    assert len(np.unique(want[0])) > 10  # the ranks spread: the tables are not degenerate
+    for r in range(m):
+        raw, filt = ranks[r]["eval non-dyadic ctransr", int(dist), m]
+        np.testing.assert_array_equal(raw, want[0], err_msg=f"rank {r} raw")
+        np.testing.assert_array_equal(filt, want[1], err_msg=f"rank {r} filtered")
 
 
 @pytest.mark.parametrize("dist", list(Distance))
