@@ -35,6 +35,7 @@ from kb2e_tpu_torch.io import text as text_io
 from kb2e_tpu_torch.models import base as model_base
 from kb2e_tpu_torch.parallel import mesh as mesh_lib
 from kb2e_tpu_torch.parallel import multihost, sharding
+from kb2e_tpu_torch.utils import profiling
 from kb2e_tpu_torch.utils.device import resolve_device
 
 
@@ -128,7 +129,8 @@ def main(argv=None, model_name=None):
                              "or relations (PTransE paper task 2)")
     args = parser.parse_args(argv)
     cfg = common.config_from_args(args)
-    return run_eval(model_name or args.model, cfg, device=args.device, task=args.task)
+    with profiling.capture_trace(args.profile_dir):
+        return run_eval(model_name or args.model, cfg, device=args.device, task=args.task)
 
 
 if __name__ == "__main__":

@@ -54,6 +54,7 @@ from kb2e_tpu_torch.data.triples import Dataset
 from kb2e_tpu_torch.eval import ranking, ranking_cluster
 from kb2e_tpu_torch.models.base import Model, Params
 from kb2e_tpu_torch.ops import distances, rank_count
+from kb2e_tpu_torch.utils import profiling
 from kb2e_tpu_torch.utils.device import resolve_device
 
 
@@ -179,74 +180,87 @@ def rank_all(
             f"eval_impl={cfg.eval_impl!r}: the port has one ranking sweep, the rank-count "
             "kernel; use 'auto' (or 'pallas')"
         )
+    with profiling.span("kb2e.eval.rank_all"):
+        return _rank_all(model, params, dataset, cfg, test_triples, dev, mesh)
+
+
+def _rank_all(model: Model, params: Params, dataset: Dataset, cfg: EmbeddingConfig, test_triples, dev, mesh):
+    """:func:`rank_all`'s pass, its layers in spans (``utils/profiling.py``)."""
     params, (th, tt, tr), parts = _eval_inputs(params, dataset, test_triples, dev)
-    fh, ft, fr = (np.concatenate([np.asarray(p[i]) for p in parts]) for i in range(3))
-    # (h, r) → known tails and (t, r) → known heads.
-    tails_of_hr = _FilterIndex(fh, fr, ft, dataset.n_relations)
-    heads_of_tr = _FilterIndex(ft, fr, fh, dataset.n_relations)
+    with profiling.span("kb2e.eval.filter_index"):
+        fh, ft, fr = (np.concatenate([np.asarray(p[i]) for p in parts]) for i in range(3))
+        # (h, r) → known tails and (t, r) → known heads.
+        tails_of_hr = _FilterIndex(fh, fr, ft, dataset.n_relations)
+        heads_of_tr = _FilterIndex(ft, fr, fh, dataset.n_relations)
+        # Filter-list segment bounds of the corrupt-head and corrupt-tail queries.
+        head_lo, head_hi = heads_of_tr.lookup(tt, tr)
+        tail_lo, tail_hi = tails_of_hr.lookup(th, tr)
 
     distance = model.effective_distance(Distance.from_any(cfg.distance))
     block_size = cfg.eval_block_size
     batch_size = cfg.eval_batch_size
 
-    # The query list: per test triple, corrupt-head then corrupt-tail.
-    # corrupt-head: q = proj[t] − r, true = h, filters = heads of (t, r).
-    # corrupt-tail: q = proj[h] + r, true = t, filters = tails of (h, r).
-    n_test = th.shape[0]
-    n_query = 2 * n_test
-    q_rel = np.repeat(tr, 2)
-    q_anchor = np.empty(n_query, dtype=np.int64)
-    q_anchor[0::2], q_anchor[1::2] = tt, th
-    q_sign = np.empty(n_query, dtype=np.float32)
-    q_sign[0::2], q_sign[1::2] = -1.0, 1.0
-    q_true = np.empty(n_query, dtype=np.int64)
-    q_true[0::2], q_true[1::2] = th, tt
-    # Filter-list segment bounds; odd slots index the tails partition, which
-    # follows the heads partition in the flat candidate array.
-    q_lo = np.empty(n_query, dtype=np.int64)
-    q_hi = np.empty(n_query, dtype=np.int64)
-    q_lo[0::2], q_hi[0::2] = heads_of_tr.lookup(tt, tr)
-    q_lo[1::2], q_hi[1::2] = tails_of_hr.lookup(th, tr)
-    q_count = q_hi - q_lo
-    q_lo[1::2] += heads_of_tr.values.shape[0]
-    filt_vals = np.concatenate([heads_of_tr.values, tails_of_hr.values])
+    with profiling.span("kb2e.eval.feed"):
+        # The query list: per test triple, corrupt-head then corrupt-tail.
+        # corrupt-head: q = proj[t] − r, true = h, filters = heads of (t, r).
+        # corrupt-tail: q = proj[h] + r, true = t, filters = tails of (h, r).
+        n_test = th.shape[0]
+        n_query = 2 * n_test
+        q_rel = np.repeat(tr, 2)
+        q_anchor = np.empty(n_query, dtype=np.int64)
+        q_anchor[0::2], q_anchor[1::2] = tt, th
+        q_sign = np.empty(n_query, dtype=np.float32)
+        q_sign[0::2], q_sign[1::2] = -1.0, 1.0
+        q_true = np.empty(n_query, dtype=np.int64)
+        q_true[0::2], q_true[1::2] = th, tt
+        # Odd slots index the tails partition, which follows the heads partition
+        # in the flat candidate array.
+        q_lo = np.empty(n_query, dtype=np.int64)
+        q_hi = np.empty(n_query, dtype=np.int64)
+        q_lo[0::2], q_hi[0::2] = head_lo, head_hi
+        q_lo[1::2], q_hi[1::2] = tail_lo, tail_hi
+        q_count = q_hi - q_lo
+        q_lo[1::2] += heads_of_tr.values.shape[0]
+        filt_vals = np.concatenate([heads_of_tr.values, tails_of_hr.values])
 
-    # Query groups: one per relation for a projecting model (a stable sort,
-    # one unique pass), else one group of every query.
-    if model.needs_projection:
-        order = np.argsort(q_rel, kind="stable")
-        uniq, starts = np.unique(q_rel[order], return_index=True)
-        bounds = np.append(starts, n_query)
-        groups = [(int(uniq[g]), order[bounds[g] : bounds[g + 1]]) for g in range(uniq.shape[0])]
-    else:
-        groups = [(None, np.arange(n_query))]
+        # Query groups: one per relation for a projecting model (a stable sort,
+        # one unique pass), else one group of every query.
+        if model.needs_projection:
+            order = np.argsort(q_rel, kind="stable")
+            uniq, starts = np.unique(q_rel[order], return_index=True)
+            bounds = np.append(starts, n_query)
+            groups = [(int(uniq[g]), order[bounds[g] : bounds[g + 1]]) for g in range(uniq.shape[0])]
+        else:
+            groups = [(None, np.arange(n_query))]
 
-    # The feed holds the groups in order, each padded to whole batches; pad
-    # slots rank query 0 and are dropped after the fetch.
-    sel_parts = []
-    for _, idxs in groups:
-        n_slot = -(-idxs.shape[0] // batch_size) * batch_size
-        sel_parts.append(np.concatenate([idxs, np.full(n_slot - idxs.shape[0], -1)]))
-    feed_sel = np.concatenate(sel_parts)
-    real = feed_sel >= 0
-    sizes = [min(batch_size, idxs.shape[0] - s) for _, idxs in groups for s in range(0, idxs.shape[0], batch_size)]
+        # The feed holds the groups in order, each padded to whole batches; pad
+        # slots rank query 0 and are dropped after the fetch.
+        sel_parts = []
+        for _, idxs in groups:
+            n_slot = -(-idxs.shape[0] // batch_size) * batch_size
+            sel_parts.append(np.concatenate([idxs, np.full(n_slot - idxs.shape[0], -1)]))
+        feed_sel = np.concatenate(sel_parts)
+        real = feed_sel >= 0
+        sizes = [min(batch_size, idxs.shape[0] - s) for _, idxs in groups for s in range(0, idxs.shape[0], batch_size)]
+        profiling.count("eval.queries", n_query)
+        profiling.count("eval.slots", feed_sel.shape[0])
 
-    def upload(a: np.ndarray, dtype) -> torch.Tensor:
-        out = np.zeros(feed_sel.shape[0], dtype=dtype)
-        out[real] = a[feed_sel[real]]
-        return torch.from_numpy(out).to(dev)
+        def upload(a: np.ndarray, dtype) -> torch.Tensor:
+            out = np.zeros(feed_sel.shape[0], dtype=dtype)
+            out[real] = a[feed_sel[real]]
+            return torch.from_numpy(out).to(dev)
 
-    feed = dict(
-        q_anchor=upload(q_anchor, np.int32),
-        q_sign=upload(q_sign, np.float32),
-        q_rel=upload(q_rel, np.int32),
-        q_true=upload(q_true, np.int32),
-        q_lo=upload(q_lo, np.int32),
-        q_count=upload(q_count, np.int32),
-        filt_vals=torch.from_numpy(filt_vals.astype(np.int32)).to(dev),
-    )
-    # One candidate width for the whole eval, as the JAX harness compiles once.
-    kmax = _round_up_pow2(int(q_count.max(initial=1)))
+        feed = dict(
+            q_anchor=upload(q_anchor, np.int32),
+            q_sign=upload(q_sign, np.float32),
+            q_rel=upload(q_rel, np.int32),
+            q_true=upload(q_true, np.int32),
+            q_lo=upload(q_lo, np.int32),
+            q_count=upload(q_count, np.int32),
+            filt_vals=torch.from_numpy(filt_vals.astype(np.int32)).to(dev),
+        )
+        # One candidate width for the whole eval, as the JAX harness compiles once.
+        kmax = _round_up_pow2(int(q_count.max(initial=1)))
 
     row0, cut = 0, {}
     if mesh is not None:
@@ -273,46 +287,52 @@ def rank_all(
     filts = torch.empty_like(raws)
     i = 0
     for rel_id, idxs in groups:
-        tables, rel = group_tables(rel_id)
-        proj = params["entity"] if rel_id is None else model.project_entities(tables, rel)
-        if model.cluster_aware:
-            # The group's projection and u = e·ce, once; routed batches.
-            ent = params["entity"]
-            vecs, centers = model.cluster_vectors(tables, rel), model.cluster_centers(tables, rel)
-            u = ent @ centers.T
+        with profiling.span("kb2e.eval.group"):
+            tables, rel = group_tables(rel_id)
+            proj = params["entity"] if rel_id is None else model.project_entities(tables, rel)
+            if model.cluster_aware:
+                # The group's projection and u = e·ce, once; routed batches.
+                ent = params["entity"]
+                vecs, centers = model.cluster_vectors(tables, rel), model.cluster_centers(tables, rel)
+                u = ent @ centers.T
+                for _ in range(0, idxs.shape[0], batch_size):
+                    with profiling.span("kb2e.eval.batch"):
+                        sl = slice(i * batch_size, (i + 1) * batch_size)
+                        anchor = feed["q_anchor"][sl].to(torch.int64)
+                        cands = ranking.feed_candidates(feed["q_lo"][sl], feed["q_count"][sl], feed["filt_vals"],
+                                                        kmax)
+                        if mesh is None:
+                            raws[i], filts[i] = ranking_cluster.rank_queries_clustered(
+                                proj, ent, proj[anchor], ent[anchor], feed["q_sign"][sl], vecs, centers,
+                                feed["q_true"][sl], cands, distance, block_size, u=u,
+                            )
+                        else:
+                            raws[i], filts[i] = par_eval.rank_queries_clustered_sharded(
+                                mesh, proj, ent, row0, anchor, feed["q_sign"][sl], vecs, centers,
+                                feed["q_true"][sl], cands, distance, block_size, u,
+                            )
+                    i += 1
+                continue
+            # The group's table, projected once, that table transposed in the
+            # rank count's aligned layout, and for L2 its squared norms.
+            proj_t = rank_count.aligned_transpose(proj)
+            e_sq = None
+            if distance == Distance.L2:
+                e_sq = (distances.squared_norms(proj_t) if mesh is None
+                        else par_eval.shard_squared_norms(proj_t, row0, dataset.n_entities))
             for _ in range(0, idxs.shape[0], batch_size):
-                sl = slice(i * batch_size, (i + 1) * batch_size)
-                anchor = feed["q_anchor"][sl].to(torch.int64)
-                cands = ranking.feed_candidates(feed["q_lo"][sl], feed["q_count"][sl], feed["filt_vals"], kmax)
-                if mesh is None:
-                    raws[i], filts[i] = ranking_cluster.rank_queries_clustered(
-                        proj, ent, proj[anchor], ent[anchor], feed["q_sign"][sl], vecs, centers,
-                        feed["q_true"][sl], cands, distance, block_size, u=u,
-                    )
-                else:
-                    raws[i], filts[i] = par_eval.rank_queries_clustered_sharded(
-                        mesh, proj, ent, row0, anchor, feed["q_sign"][sl], vecs, centers, feed["q_true"][sl],
-                        cands, distance, block_size, u,
-                    )
+                with profiling.span("kb2e.eval.batch"):
+                    knobs = dict(start=i * batch_size, distance=distance, block_size=block_size, batch=batch_size,
+                                 kmax=kmax, e_sq=e_sq)
+                    if mesh is None:
+                        raws[i], filts[i] = ranking.rank_feed_queries(proj, proj_t, params["relation"], **feed,
+                                                                      **knobs)
+                    else:
+                        raws[i], filts[i] = par_eval.rank_feed_queries_sharded(
+                            mesh, proj, proj_t, row0, params["relation"], **feed, **knobs)
                 i += 1
-            continue
-        # The group's table, projected once, that table transposed in the
-        # rank count's aligned layout, and for L2 its squared norms.
-        proj_t = rank_count.aligned_transpose(proj)
-        e_sq = None
-        if distance == Distance.L2:
-            e_sq = (distances.squared_norms(proj_t) if mesh is None
-                    else par_eval.shard_squared_norms(proj_t, row0, dataset.n_entities))
-        for _ in range(0, idxs.shape[0], batch_size):
-            knobs = dict(start=i * batch_size, distance=distance, block_size=block_size, batch=batch_size,
-                         kmax=kmax, e_sq=e_sq)
-            if mesh is None:
-                raws[i], filts[i] = ranking.rank_feed_queries(proj, proj_t, params["relation"], **feed, **knobs)
-            else:
-                raws[i], filts[i] = par_eval.rank_feed_queries_sharded(
-                    mesh, proj, proj_t, row0, params["relation"], **feed, **knobs)
-            i += 1
-    return raws.reshape(-1).cpu().numpy()[real], filts.reshape(-1).cpu().numpy()[real], sizes
+    with profiling.span("kb2e.eval.fetch"):
+        return raws.reshape(-1).cpu().numpy()[real], filts.reshape(-1).cpu().numpy()[real], sizes
 
 
 def evaluate(

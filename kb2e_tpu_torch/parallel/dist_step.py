@@ -36,6 +36,7 @@ from kb2e_tpu_torch.models.base import Batch, Model, Params, pad_to_chunks
 from kb2e_tpu_torch.ops import scatter
 from kb2e_tpu_torch.parallel import sharding
 from kb2e_tpu_torch.parallel.mesh import Mesh
+from kb2e_tpu_torch.utils import profiling
 
 # The batch keys that hold entity ids.
 ENTITY_KEYS = ("ph", "pt", "nh", "nt")
@@ -133,8 +134,9 @@ def apply_batches(model: Model, cfg: EmbeddingConfig, mesh: Mesh, params: Params
     n = next(iter(batches.values())).shape[0]
     losses = []
     for i in range(n):
-        params, loss = distributed_update(model, cfg, mesh, params, {k: v[i] for k, v in batches.items()},
-                                          n_entities)
+        with profiling.span("kb2e.train.batch"):
+            params, loss = distributed_update(model, cfg, mesh, params, {k: v[i] for k, v in batches.items()},
+                                              n_entities)
         losses.append(loss)
     return params, torch.stack(losses).sum()
 

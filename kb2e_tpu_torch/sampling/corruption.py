@@ -28,6 +28,7 @@ import torch
 from kb2e_tpu_torch.constants import Method
 from kb2e_tpu_torch.models.base import Batch
 from kb2e_tpu_torch.sampling import cuckoo, membership
+from kb2e_tpu_torch.utils import profiling
 
 
 def sample_batch(
@@ -87,6 +88,11 @@ def sample_batch(
     else:
         bad = membership.contains(sorted_h, sorted_r, sorted_t, qh, qr, qt)
 
+    if profiling.recording():
+        # Slots whose first candidate is a known triple: the reference's
+        # rejection loop would draw again for them.
+        profiling.count("sampler.slots", batch_size * kneg)
+        profiling.count_device("sampler.retried", bad[..., 0].sum())
     ok = ~bad
     # argmax takes no bool: the first certified negative per slot (0 if none).
     first = torch.argmax(ok.to(torch.int32), dim=2)

@@ -31,6 +31,7 @@ from kb2e_tpu_torch.data.triples import TripleSet
 from kb2e_tpu_torch.models.base import Batch, Model, Params, pad_to_chunks
 from kb2e_tpu_torch.parallel import dist_step
 from kb2e_tpu_torch.sampling import corruption, cuckoo
+from kb2e_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -203,30 +204,35 @@ class EpochRunner:
     def sample(self, generator: torch.Generator, data: DeviceData) -> Batch:
         """Every batch of the epoch, each tensor shaped [num_batches, rows],
         or for a chunked model [n_chunks, chunk] with the padding invalid."""
-        big = sample_batch(generator, data, self.cfg, self.num_batches * self.batch_size)
-        if self.chunk is None:
-            return {k: v.reshape(self.num_batches, self.rows, *v.shape[1:]) for k, v in big.items()}
-        return pad_to_chunks(big, self.chunk)
+        with profiling.span("kb2e.train.sample"):
+            big = sample_batch(generator, data, self.cfg, self.num_batches * self.batch_size)
+            if self.chunk is None:
+                return {k: v.reshape(self.num_batches, self.rows, *v.shape[1:]) for k, v in big.items()}
+            return pad_to_chunks(big, self.chunk)
 
     def apply(self, params: Params, batches: Batch, n_entities: int) -> Tuple[Params, torch.Tensor]:
         """Apply [n, rows] batches in order; returns (params, loss sum)."""
-        if self.mesh is not None:
-            return dist_step.apply_batches(self.model, self.cfg, self.mesh, params, batches, n_entities)
-        n_batches = next(iter(batches.values())).shape[0]
-        losses = []
-        if self.fused:
-            table = self.model.fuse_params(params)
-            for i in range(n_batches):
-                table, loss = self.model.fused_table_update(
-                    table, n_entities, {k: v[i] for k, v in batches.items()}, self.cfg
-                )
-                losses.append(loss)
-            params = self.model.unfuse_params(table, n_entities)
-        else:
-            for i in range(n_batches):
-                params, loss = self.model.batch_update(params, {k: v[i] for k, v in batches.items()}, self.cfg)
-                losses.append(loss)
-        return params, torch.stack(losses).sum()
+        with profiling.span("kb2e.train.apply"):
+            if self.mesh is not None:
+                return dist_step.apply_batches(self.model, self.cfg, self.mesh, params, batches, n_entities)
+            n_batches = next(iter(batches.values())).shape[0]
+            losses = []
+            if self.fused:
+                table = self.model.fuse_params(params)
+                for i in range(n_batches):
+                    with profiling.span("kb2e.train.batch"):
+                        table, loss = self.model.fused_table_update(
+                            table, n_entities, {k: v[i] for k, v in batches.items()}, self.cfg
+                        )
+                    losses.append(loss)
+                params = self.model.unfuse_params(table, n_entities)
+            else:
+                for i in range(n_batches):
+                    with profiling.span("kb2e.train.batch"):
+                        params, loss = self.model.batch_update(params, {k: v[i] for k, v in batches.items()},
+                                                               self.cfg)
+                    losses.append(loss)
+            return params, torch.stack(losses).sum()
 
     def __call__(self, params: Params, generator: torch.Generator, data: DeviceData) -> Tuple[Params, torch.Tensor]:
         return self.apply(params, self.sample(generator, data), data.n_entities)

@@ -661,23 +661,13 @@ def test_global_bern_stats_and_allgather_edges_equal_jax_merge(ranks, ts):
 def test_trace_context_names_a_region_of_the_exported_trace(tmp_path):
     log_dir = str(tmp_path / "trace")
     with profiling.capture_trace(log_dir):
-        with profiling.trace_context("unit-test-region"):
+        with profiling.span("unit-test-region"):
             x = torch.ones(8, 8).sum()
     assert float(x) == 64.0
     with open(os.path.join(log_dir, "trace.json"), encoding="utf-8") as f:
         assert "unit-test-region" in f.read()
     with profiling.capture_trace(None):  # a no-op
         pass
-
-
-def test_step_timer_rate():
-    timer = profiling.StepTimer(window=8)
-    assert timer.rate(100.0) == 0.0  # fewer than 2 ticks
-    clock = iter([0.0, 1.0, 2.0])
-    timer._clock = lambda: next(clock)
-    for _ in range(3):
-        timer.tick()
-    assert timer.rate(100.0) == pytest.approx(100.0)  # 2 intervals in 2 s, 200 units
 
 
 @pytest.mark.parametrize("name", MODELS)
