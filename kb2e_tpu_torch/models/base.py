@@ -72,6 +72,10 @@ class Model(abc.ABC):
     # The fast update's chunk for chunk-sequential models (TransR): the
     # epoch runner feeds them the epoch in chunks of this many samples.
     chunk_size: Optional[int] = None
+    # True if the fast update is ``chunk_update_`` applied chunk by chunk in
+    # place on a fused [N+R, k] table and ``proj``, which waits for the
+    # device nowhere: on one card the epoch runner replays it as a CUDA graph.
+    supports_inplace_chunk: bool = False
     # The params key of the table in ``weights.<tag>`` (TransH's hyperplane
     # normals, TransR's matrices), or None; its shape is ``weights_shape``.
     weights_key: Optional[str] = None
@@ -140,6 +144,10 @@ class Model(abc.ABC):
     def warm_start_params(self, params: Params, seed_entity, seed_relation) -> Params:
         """``params`` with the TransE seed tables loaded (``has_warm_start`` models)."""
         raise NotImplementedError(f"model {self.name} has no warm start")
+
+
+# The keys of a chunk of the fast update (``Model.chunk_update_``).
+CHUNK_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
 
 
 def pad_to_chunks(batch: Batch, chunk: int) -> Batch:

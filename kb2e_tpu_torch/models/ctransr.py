@@ -121,6 +121,9 @@ class CTransR(transr.TransR):
     # No reference binary to be sequentially faithful to: parity mode is the
     # fast update, and K5 (TransR's kernel) never sees a CTransR batch.
     has_parity_mode = False
+    # Its own three-group ``batch_update``, never TransR's chunk body or the
+    # runner's CUDA graph of it.
+    supports_inplace_chunk = False
     file_extras = {"relation_clusters": "relation_c", "cluster_centers": "centers"}
 
     def __init__(self, n_clusters: int = DEFAULT_NUM_CLUSTERS, alpha: float = DEFAULT_ALPHA):

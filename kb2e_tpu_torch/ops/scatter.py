@@ -2,19 +2,20 @@
 
 Counterpart of ``kb2e_tpu/ops/scatter.py``.  The fast update accumulates
 per-sample row deltas into the tables (``common/trainer.cpp:130-149``
-vectorised).  ``scatter_add_direct`` is one duplicate-tolerant
-``index_add``; ``scatter_add_dedup`` first combines duplicate indices with a
-sort and a segmented cumulative sum, then adds one row per unique id.  Both
-compute the same sums, up to the order of float additions.  Both return a
-new table: the input is not written.
+vectorised).  Mode ``"direct"`` is one duplicate-tolerant ``index_add``;
+``"dedup"`` first combines duplicate indices with a sort and a segmented
+cumulative sum, then adds one row per unique id.  Both compute the same
+sums, up to the order of float additions.  :func:`scatter_add_` adds into
+the table it is given; :func:`scatter_add` returns a new table and leaves
+its input as it was.
 
-:func:`scatter_add` is also where per-sample contributions become table
-deltas, and so the one point a data-parallel step hooks
-(``parallel/dist_step.py``): under :func:`every_rank`, the indices and
-deltas of every rank's share of the batch are gathered, in the batch's
-order, before the add; :func:`touched` gives the rows the whole batch
-touches, and :func:`summed` sums a dense contribution (PTransE's gradients)
-over the ranks.  Without a hook the three are what they were on one device.
+The two are also where per-sample contributions become table deltas, and
+so the one point a data-parallel step hooks (``parallel/dist_step.py``):
+under :func:`every_rank`, the indices and deltas of every rank's share of
+the batch are gathered, in the batch's order, before the add;
+:func:`touched` gives the rows the whole batch touches, and :func:`summed`
+sums a dense contribution (PTransE's gradients) over the ranks.  Without a
+hook they are what they were on one device.
 """
 
 from __future__ import annotations
@@ -49,21 +50,14 @@ def summed(x: torch.Tensor) -> torch.Tensor:
     return x if _hook is None else _hook.dense(x)
 
 
-def scatter_add_direct(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Plain duplicate-tolerant scatter-add (``index_add`` out of place)."""
-    return table.index_add(0, idx, delta)
+def _combine_duplicates(idx: torch.Tensor, delta: torch.Tensor):
+    """(unique ids, their summed rows [U, -1]) of idx [M] and delta [M, ...].
 
-
-def scatter_add_dedup(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Scatter-add after combining duplicate indices.
-
-    idx [M] row ids (may repeat), delta [M, ...] (any trailing shape, e.g.
-    [M, k] rows or [M, k, k] TransR projection blocks).  Sorts rows by id,
-    takes per-segment sums as differences of the cumulative sum at segment
-    ends, and adds one row per unique id.
+    Sorts rows by id and takes per-segment sums as differences of the
+    cumulative sum at segment ends.  Its boolean selections wait for the
+    device, so a CUDA graph cannot hold it.
     """
     m = idx.shape[0]
-    trailing = delta.shape[1:]
     delta = delta.reshape(m, -1)
     order = torch.argsort(idx, stable=True)
     sidx = idx[order]
@@ -76,14 +70,22 @@ def scatter_add_dedup(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tenso
     end_pos = torch.where(is_end, pos, -1)
     prev_end = torch.cummax(torch.cat([end_pos.new_full((1,), -1), end_pos[:-1]]), dim=0).values
     prev_csum = torch.where((prev_end >= 0)[:, None], csum[prev_end.clamp(min=0)], 0.0)
-    seg_sum = (csum - prev_csum)[is_end]
-    out = table.reshape(table.shape[0], -1).index_add(0, sidx[is_end], seg_sum)
-    return out.reshape(table.shape[0], *trailing)
+    return sidx[is_end], (csum - prev_csum)[is_end]
 
 
-def scatter_add(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor, mode: str = "direct") -> torch.Tensor:
+def scatter_add_(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor, mode: str = "direct") -> torch.Tensor:
+    """Adds ``delta``'s rows [M, ...] into ``table``'s rows ``idx`` [M] (ids
+    may repeat; any trailing shape, e.g. [M, k] rows or [M, k, k] TransR
+    projection blocks), in place; returns ``table``."""
     if _hook is not None:
         idx, delta = _hook.rows(idx, delta)
     if mode == "dedup":
-        return scatter_add_dedup(table, idx, delta)
-    return scatter_add_direct(table, idx, delta)
+        idx, delta = _combine_duplicates(idx, delta)
+        table.view(table.shape[0], -1).index_add_(0, idx, delta)
+        return table
+    return table.index_add_(0, idx, delta)
+
+
+def scatter_add(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor, mode: str = "direct") -> torch.Tensor:
+    """:func:`scatter_add_` into a copy of ``table``."""
+    return scatter_add_(table.clone(memory_format=torch.contiguous_format), idx, delta, mode)

@@ -10,7 +10,9 @@ Where ``kb2e_tpu`` jit-compiles a step and runs a whole epoch as one
 ``lax.scan``, the port runs eagerly: the epoch runner samples the whole
 epoch in one call, then applies its batches in order in a Python loop.
 For the chunk-sequential models (TransR) the epoch is cut into chunk-sized
-mini-batches instead, as ``kb2e_tpu`` cuts it.  Given a mesh
+mini-batches instead, as ``kb2e_tpu`` cuts it; on one card a chunk whose
+update runs in place (TransR's) is recorded once as a CUDA graph and replayed
+for every chunk (:class:`ChunkGraph`).  Given a mesh
 (``parallel/mesh.py``), the runner applies each batch through
 ``parallel/dist_step.py``: every rank draws the whole epoch, scores its share
 of each batch, and the row deltas are gathered over the data axis.  The
@@ -28,7 +30,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Method
 from kb2e_tpu_torch.data.triples import TripleSet
-from kb2e_tpu_torch.models.base import Batch, Model, Params, pad_to_chunks
+from kb2e_tpu_torch.models.base import CHUNK_KEYS, Batch, Model, Params, pad_to_chunks
 from kb2e_tpu_torch.parallel import dist_step
 from kb2e_tpu_torch.sampling import corruption, cuckoo
 from kb2e_tpu_torch.utils import profiling
@@ -174,7 +176,16 @@ class EpochRunner:
     ``num_batches`` batches: batch boundaries carry no meaning for its
     chunk-sequential update, so the epoch's samples are padded with invalid
     slots to whole chunks and applied chunk by chunk
-    (``kb2e_tpu/train/step.py:302-355``).  Returns (params, epoch loss).
+    (``kb2e_tpu/train/step.py:302-355``).  Returns (params, epoch loss);
+    the params it was given are never written.
+
+    On one CUDA device, with no mesh, a model whose chunk runs in place
+    (``Model.supports_inplace_chunk``), direct scatters and float32 tables,
+    :meth:`apply` replays the chunk as a CUDA graph (:class:`ChunkGraph`),
+    captured at its first call and again only when what the graph bakes in
+    changes.  Everywhere else (the CPU, a mesh, ``scatter_mode="dedup"``,
+    whose duplicate merge waits for the device) the chunks run eagerly
+    through ``Model.batch_update``: the same chunk body.
 
     With ``mesh`` (``parallel/mesh.py``) the runner is never fused (as in the
     JAX package), the batch must divide by the data axis, the chunk is
@@ -200,6 +211,7 @@ class EpochRunner:
         self.rows = batch_size * max(1, cfg.num_negatives)
         # Never coarser than the configured batch.
         self.chunk = None if fused else dist_step.chunk_rows(model, self.rows, d)
+        self._graph: Optional[ChunkGraph] = None
 
     def sample(self, generator: torch.Generator, data: DeviceData) -> Batch:
         """Every batch of the epoch, each tensor shaped [num_batches, rows],
@@ -213,9 +225,15 @@ class EpochRunner:
     def apply(self, params: Params, batches: Batch, n_entities: int) -> Tuple[Params, torch.Tensor]:
         """Apply [n, rows] batches in order; returns (params, loss sum)."""
         with profiling.span("kb2e.train.apply"):
+            n_batches = next(iter(batches.values())).shape[0]
+            graph = self._chunk_graph(params, batches)
+            if self.chunk is not None:
+                profiling.count("train.chunks", n_batches)
+                profiling.count("train.chunks_replayed", 0 if graph is None else n_batches)
             if self.mesh is not None:
                 return dist_step.apply_batches(self.model, self.cfg, self.mesh, params, batches, n_entities)
-            n_batches = next(iter(batches.values())).shape[0]
+            if graph is not None:
+                return graph.apply(params, batches)
             losses = []
             if self.fused:
                 table = self.model.fuse_params(params)
@@ -234,8 +252,84 @@ class EpochRunner:
                     losses.append(loss)
             return params, torch.stack(losses).sum()
 
+    def _chunk_graph(self, params: Params, batches: Batch) -> Optional[ChunkGraph]:
+        """The chunk's CUDA graph where :meth:`apply` can replay one, or None."""
+        ent, rows = params["entity"], batches["ph"].shape[1]
+        if not (self.mesh is None and self.model.supports_inplace_chunk and self.cfg.scatter_mode == "direct"
+                and ent.is_cuda and rows <= self.model.chunk_size
+                and all(params[key].dtype == torch.float32 for key in ("entity", "relation", "proj"))):
+            return None
+        if self._graph is None or self._graph.key != ChunkGraph.key_of(params, rows, self.cfg):
+            self._graph = None  # the old graph's memory goes before the new one is captured
+            self._graph = ChunkGraph(self.model, self.cfg, params, rows)
+        return self._graph
+
     def __call__(self, params: Params, generator: torch.Generator, data: DeviceData) -> Tuple[Params, torch.Tensor]:
         return self.apply(params, self.sample(generator, data), data.n_entities)
+
+
+class ChunkGraph:
+    """A model's in-place chunk (``Model.chunk_update_``) recorded once as a
+    CUDA graph, replayed for every chunk.
+
+    The graph reads and writes buffers of its own at fixed addresses: the
+    fused [N+R, k] table and ``proj`` [R, k, k], a feed [6, chunk] of the
+    chunk's ids and ``valid`` (int64) and the chunk's loss.  Warm-up (on a
+    side stream, as capture requires) and capture run on these buffers
+    before any caller's tables are copied in: of ``params`` the graph takes
+    only the shapes and the device.
+    """
+
+    WARMUP = 2
+
+    @staticmethod
+    def key_of(params: Params, chunk: int, cfg: EmbeddingConfig):
+        """What a graph bakes in: the device, the table shapes, the chunk and
+        the update's constants (TF32 picks the products' kernels)."""
+        return (params["entity"].device, params["entity"].shape[0], *params["proj"].shape, chunk, cfg.distance,
+                cfg.learning_rate, cfg.margin, torch.backends.cuda.matmul.allow_tf32)
+
+    def __init__(self, model: Model, cfg: EmbeddingConfig, params: Params, chunk: int):
+        self.key = self.key_of(params, chunk, cfg)
+        device, (n_relations, k, _) = params["entity"].device, params["proj"].shape
+        self.n_entities = n_entities = params["entity"].shape[0]
+        self.fused = torch.zeros(n_entities + n_relations, k, device=device)
+        self.proj = torch.zeros(n_relations, k, k, device=device)
+        self.feed = torch.zeros(len(CHUNK_KEYS), chunk, dtype=torch.int64, device=device)
+
+        def body() -> torch.Tensor:
+            ids = dict(zip(CHUNK_KEYS, self.feed))
+            ids["valid"] = ids["valid"] != 0
+            return model.chunk_update_(self.fused, self.proj, n_entities, ids, cfg)
+
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.loss = body()
+
+    def apply(self, params: Params, batches: Batch) -> Tuple[Params, torch.Tensor]:
+        """[n, chunk] chunks in order from ``params``' tables: fresh tables
+        and the summed loss.  A chunk costs the host one copy of its feed,
+        the replay and one copy of its loss."""
+        n = self.n_entities
+        self.fused[:n].copy_(params["entity"])
+        self.fused[n:].copy_(params["relation"])
+        self.proj.copy_(params["proj"])
+        feed = torch.stack([batches[key].to(torch.int64) for key in CHUNK_KEYS], dim=1)
+        losses = torch.empty(feed.shape[0], device=self.fused.device)
+        for i in range(feed.shape[0]):
+            with profiling.span("kb2e.train.batch"):
+                self.feed.copy_(feed[i])
+                self.graph.replay()
+                losses[i].copy_(self.loss)
+        fused = self.fused.clone()
+        return {"entity": fused[:n], "relation": fused[n:], "proj": self.proj.clone()}, losses.sum()
 
 
 def make_epoch_runner(model: Model, cfg: EmbeddingConfig, batch_size: int, num_batches: int,

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5).  K3, K4 and K5 run
+TransH update (K4) and the sequential TransR update (K5); and TransR's fast
+chunk replayed as a CUDA graph by the epoch runner against the same chunk
+run eagerly.  K3, K4 and K5 run
 samples that share no row side by side; batches built to stress that
 schedule (a chain of the whole batch, no shared row at all, fewer samples
 than resident blocks, no update at all) hold them bit-equal to their plain
@@ -22,6 +24,8 @@ from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import get_model
 from kb2e_tpu_torch.ops import distances, rank_count, schedule, transe_update, transh_update, transr_update
 from kb2e_tpu_torch.parallel import eval as par_eval
+from kb2e_tpu_torch.train import step as step_lib
+from kb2e_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -674,3 +678,136 @@ def test_block_squared_norms_of_a_shard_have_the_whole_tables_bits(cuda, first):
     got = par_eval.shard_squared_norms(shard, first, 14951)
     assert torch.equal(got, whole[first:first + 7475])
     torch.testing.assert_close(got, distances.squared_norms(shard), rtol=1e-6, atol=0)
+
+
+# --- TransR's fast chunk as a CUDA graph (train/step.py::ChunkGraph) --------------------
+
+CHUNK_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
+
+
+def _dyadic_tables(n, n_rel, k, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def dy(shape):
+        return torch.from_numpy(np.clip(np.round(rng.normal(size=shape) * 3) / 8, -1, 1).astype(np.float32)).to(dev)
+
+    return {"entity": dy((n, k)), "relation": dy((n_rel, k)), "proj": dy((n_rel, k, k))}
+
+
+def _chunk_feed(n_chunks, chunk, n, n_rel, seed, dev, distinct=True):
+    """[n_chunks, chunk] int32 ids and valid.  With ``distinct`` a chunk's
+    valid samples touch rows and relations no other valid sample of the
+    chunk touches (both sides corrupted), so no two non-zero deltas meet on
+    a row and the order of ``index_add``'s atomics cannot matter; its
+    invalid samples (tail corrupted, nh == ph) repeat those rows and
+    relations, and the last chunk ends in pad slots (id 0, invalid).
+    Without it every sample is drawn at random, duplicates and all."""
+    rng = np.random.default_rng(seed)
+    out = {key: np.zeros((n_chunks, chunk), np.int32) for key in CHUNK_KEYS}
+    out["valid"] = np.zeros((n_chunks, chunk), bool)
+    n_valid = chunk * 3 // 4
+    for c in range(n_chunks):
+        if distinct:
+            ents, rels = rng.permutation(n)[:4 * n_valid].reshape(4, n_valid), rng.permutation(n_rel)[:n_valid]
+            for key, ids in zip(("ph", "pt", "nh", "nt", "r"), (*ents, rels)):
+                out[key][c, :n_valid] = ids
+                out[key][c, n_valid:] = rng.choice(ids, chunk - n_valid)
+            out["nh"][c, n_valid:] = out["ph"][c, n_valid:]
+            out["valid"][c, :n_valid] = True
+        else:
+            for key in ("ph", "pt", "nh", "nt"):
+                out[key][c] = rng.integers(0, n, chunk)
+            out["r"][c] = rng.integers(0, n_rel, chunk)
+            out["valid"][c] = rng.random(chunk) > 0.1
+    for key in CHUNK_KEYS:
+        out[key][-1, -5:] = 0
+    return {key: torch.from_numpy(v).to(dev) for key, v in out.items()}
+
+
+def _eager_chunks(model, params, feed, cfg):
+    """The chunks one ``batch_update`` call each: the body the graph records, run eagerly."""
+    losses = []
+    for i in range(feed["ph"].shape[0]):
+        params, loss = model.batch_update(params, {key: v[i] for key, v in feed.items()}, cfg)
+        losses.append(loss)
+    return params, torch.stack(losses).sum()
+
+
+def _chunk_graph_case(cuda, distance, scatter_mode="direct", distinct=True):
+    n, n_rel, k, chunk, n_chunks = 300, 40, 16, 32, 5
+    cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16, margin=1.0, distance=int(distance),
+                          scatter_mode=scatter_mode)
+    model = get_model("transr")
+    runner = step_lib.make_epoch_runner(model, cfg, chunk, n_chunks)
+    assert runner.chunk == chunk
+    return (model, cfg, runner, _dyadic_tables(n, n_rel, k, 11 + int(distance), cuda),
+            _chunk_feed(n_chunks, chunk, n, n_rel, 5 + int(distance), cuda, distinct), n)
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
+    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, distance)
+    before = {key: v.clone() for key, v in params.items()}
+    got, loss = runner.apply(params, feed, n)
+    assert runner._graph is not None
+    want, want_loss = _eager_chunks(model, params, feed, cfg)
+    for key in params:
+        assert torch.equal(got[key], want[key]), key
+        assert torch.equal(params[key], before[key]), key  # warm-up and capture left the inputs alone
+    assert torch.equal(loss, want_loss) and float(loss) > 0
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda, distance):
+    # Duplicate rows of violating samples: the atomics of index_add may add
+    # in another order in the two runs, an ulp apart at most.
+    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, distance, distinct=False)
+    got, loss = runner.apply(params, feed, n)
+    want, want_loss = _eager_chunks(model, params, feed, cfg)
+    for key in params:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
+
+
+def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, Distance.L1)
+    first = {key: v[:1] for key, v in feed.items()}
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            one, _ = runner.apply(params, first, n)  # a start check's call: one chunk
+            graph = runner._graph
+            kept = {key: v.clone() for key, v in one.items()}
+            out, loss = runner.apply(one, feed, n)  # then a whole feed
+            assert runner._graph is graph
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    n_chunks = feed["ph"].shape[0]
+    assert counters["train.chunks"] == counters["train.chunks_replayed"] == 1 + n_chunks
+    for key in one:
+        assert torch.equal(one[key], kept[key]), key  # the second call wrote none of the first's tables
+    want, _ = _eager_chunks(model, *_eager_chunks(model, params, first, cfg)[:1], feed, cfg)
+    for key in want:
+        assert torch.equal(out[key], want[key]), key
+
+
+def test_transr_dedup_runs_eagerly_on_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, Distance.L2, scatter_mode="dedup")
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            got, loss = runner.apply(params, feed, n)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert runner._graph is None
+    assert counters["train.chunks"] == feed["ph"].shape[0] and counters["train.chunks_replayed"] == 0
+    want, want_loss = _eager_chunks(model, params, feed, cfg)
+    for key in params:
+        assert torch.equal(got[key], want[key]), key
+    assert torch.equal(loss, want_loss)

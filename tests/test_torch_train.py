@@ -348,6 +348,76 @@ class _NoFused:
     supports_fused_table = False
 
 
+def _runner_case(name, mesh=None):
+    """A runner of ``name`` over batches of 16 rows (TransR's: chunks of
+    16), its CPU tables and an injected feed of three of them."""
+    model, rows = get_model(name), 16
+    cfg = EmbeddingConfig(embedding_size=8, learning_rate=0.05)
+    params = model.init_params(torch.Generator().manual_seed(3), N_ENT, N_REL, cfg, "cpu")
+    per = [_batch_arrays(40 + i, rows) for i in range(3)]
+    feed = _torch_batch(tuple(np.stack([p[j] for p in per]) for j in range(6)))
+    return step_lib.make_epoch_runner(model, cfg, rows, 3, mesh=mesh), params, feed
+
+
+@pytest.mark.parametrize("name", ["transe", "transr", "ctransr"])
+def test_epoch_runner_apply_writes_none_of_its_inputs(name):
+    runner, params, feed = _runner_case(name)
+    before = {key: v.clone() for key, v in {**params, **feed}.items()}
+    out, _ = runner.apply(params, feed, N_ENT)
+    assert all(torch.equal(v, before[key]) for key, v in {**params, **feed}.items())
+    assert any(not torch.equal(out[key], params[key]) for key in params)
+
+
+@pytest.mark.parametrize("name", ["transe", "transr"])
+def test_two_apply_calls_return_tables_that_share_no_memory(name):
+    runner, params, feed = _runner_case(name)
+    first, _ = runner.apply(params, feed, N_ENT)
+    kept = {key: v.clone() for key, v in first.items()}
+    second, _ = runner.apply(params, feed, N_ENT)
+    for key in params:
+        assert torch.equal(second[key], first[key])  # the same inputs, the same update
+        second[key].add_(1.0)
+        assert torch.equal(first[key], kept[key])
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_a_cpu_runner_counts_its_chunks_and_replays_none(mesh):
+    from torch.profiler import ProfilerActivity, profile
+
+    from kb2e_tpu_torch.parallel import mesh as mesh_lib
+
+    runner, params, feed = _runner_case("transr", mesh_lib.single_device_mesh("cpu") if mesh else None)
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            runner.apply(params, feed, N_ENT)
+            runner.apply(params, {key: v[:1] for key, v in feed.items()}, N_ENT)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert counters["train.chunks"] == 4 and counters["train.chunks_replayed"] == 0
+
+
+def test_ctransr_runner_goes_through_its_own_batch_update(monkeypatch):
+    from kb2e_tpu_torch.models import ctransr, transr
+
+    runner, params, feed = _runner_case("ctransr")
+    calls = []
+    own = ctransr.CTransR.batch_update
+
+    def spy(self, params, batch, cfg):
+        calls.append(batch["ph"].shape[0])
+        return own(self, params, batch, cfg)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("CTransR went through TransR's chunk body")
+
+    monkeypatch.setattr(ctransr.CTransR, "batch_update", spy)
+    monkeypatch.setattr(transr.TransR, "chunk_update_", refuse)
+    runner.apply(params, feed, N_ENT)
+    assert calls == [16, 16, 16] and not runner.model.supports_inplace_chunk
+
+
 # --- loop and CLI -----------------------------------------------------------------
 
 
