@@ -73,9 +73,19 @@ class Model(abc.ABC):
     # epoch runner feeds them the epoch in chunks of this many samples.
     chunk_size: Optional[int] = None
     # True if the fast update is ``chunk_update_`` applied chunk by chunk in
-    # place on a fused [N+R, k] table and ``proj``, which waits for the
-    # device nowhere: on one card the epoch runner replays it as a CUDA graph.
+    # place on a fused [N+R, k] table and the ``chunk_tables``, which waits
+    # for the device nowhere: on one card the epoch runner replays it as a
+    # CUDA graph.
     supports_inplace_chunk: bool = False
+    # The params besides ``entity`` and ``relation`` that ``chunk_update_``
+    # takes in its ``tables``: those it writes in place, then those it only
+    # reads.
+    chunk_tables: Tuple[str, ...] = ()
+    chunk_inputs: Tuple[str, ...] = ()
+    # The device counters that ``chunk_update_`` keeps in a count buffer
+    # (``chunk_counts``, given as ``tables["counts"]``) while a profiler
+    # records, or none.
+    chunk_counters: Tuple[str, ...] = ()
     # The params key of the table in ``weights.<tag>`` (TransH's hyperplane
     # normals, TransR's matrices), or None; its shape is ``weights_shape``.
     weights_key: Optional[str] = None
@@ -144,6 +154,14 @@ class Model(abc.ABC):
     def warm_start_params(self, params: Params, seed_entity, seed_relation) -> Params:
         """``params`` with the TransE seed tables loaded (``has_warm_start`` models)."""
         raise NotImplementedError(f"model {self.name} has no warm start")
+
+    def chunk_counts(self, params: Params) -> torch.Tensor:
+        """A zeroed count buffer for ``chunk_update_`` (models with ``chunk_counters``)."""
+        raise NotImplementedError(f"model {self.name} counts nothing in its chunk")
+
+    def read_chunk_counts(self, counts: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each of ``chunk_counters`` as a device scalar, from ``counts``."""
+        raise NotImplementedError(f"model {self.name} counts nothing in its chunk")
 
 
 # The keys of a chunk of the fast update (``Model.chunk_update_``).

@@ -24,7 +24,7 @@ of the random init's relation table (``init_params``); ``centers`` come from
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -121,9 +121,11 @@ class CTransR(transr.TransR):
     # No reference binary to be sequentially faithful to: parity mode is the
     # fast update, and K5 (TransR's kernel) never sees a CTransR batch.
     has_parity_mode = False
-    # Its own three-group ``batch_update``, never TransR's chunk body or the
-    # runner's CUDA graph of it.
-    supports_inplace_chunk = False
+    # TransR's ``batch_update`` over this chunk (``chunk_update_``), which
+    # the epoch runner replays as a CUDA graph on one card, as TransR's.
+    chunk_tables = ("proj", "relation_c")
+    chunk_inputs = ("centers",)
+    chunk_counters = ("ctransr.routed", "ctransr.routed_top")
     file_extras = {"relation_clusters": "relation_c", "cluster_centers": "centers"}
 
     def __init__(self, n_clusters: int = DEFAULT_NUM_CLUSTERS, alpha: float = DEFAULT_ALPHA):
@@ -165,92 +167,73 @@ class CTransR(transr.TransR):
         return distances.residual_energy(self._project_all(params, t, rels) - self._project_all(params, h, rels) - rv,
                                          distance)
 
-    def batch_update(self, params, batch: base.Batch, cfg: EmbeddingConfig) -> Tuple[base.Params, torch.Tensor]:
-        """Chunk-sequential fast update, as ``kb2e_tpu.models.ctransr.CTransR.batch_update``.
+    def chunk_update_(self, fused: torch.Tensor, tables: base.Params, n_entities: int, chunk: base.Batch,
+                      cfg: EmbeddingConfig) -> torch.Tensor:
+        """One chunk of the fast update, as a chunk of
+        ``kb2e_tpu.models.ctransr.CTransR.batch_update``, in place on
+        ``fused`` [N+R, k] (the entities, then the relations),
+        ``tables["proj"]`` and ``tables["relation_c"]``; ``tables["centers"]``
+        is only read.  Returns the chunk's loss.
 
-        The batch is padded to whole chunks of ``min(chunk_size, B)`` (pad
-        slots index row 0 and are invalid) and the chunks are applied in
-        order; within a chunk every read sees the chunk-start tables and
-        duplicate rows' deltas add up:
+        Every read sees the chunk-start tables and duplicate rows' deltas add
+        up, through TransR's stages (``transr.scores``,
+        ``step_entities_and_w_``, ``ball_step_``):
         * each sample takes the cluster c of its positive offset; both of its
           triples score against ``relation_c[r, c]``;
         * the closed-form gradients of the violating samples go into W and
           the entity rows as in TransR, and into ``relation_c[r, c]`` with
           the α regulariser 2α(r_{r,c} − r), whose opposite goes into
-          ``relation[r]`` (r read at the chunk start);
+          ``relation[r]``;
         * sphere norms of the touched entity rows, cluster vectors and rows
           of W, a ball norm of the touched relation rows;
         * one masked iteration of the coupled ‖e·W‖ ≤ 1 descent on the three
           entity groups (h, r), (t, r), (corrupted, r) — no relation group,
           unlike TransR.
-        Returns (params, loss summed over the chunks).
+        With ``tables["counts"]`` (``chunk_counts``) it also adds each valid
+        sample to its (relation, cluster)'s count.  It waits for the device
+        nowhere, so that the epoch runner can record it as a CUDA graph.
         """
-        lr = cfg.learning_rate
-        dist = self.effective_distance(Distance.from_any(cfg.distance))
-        keys = ("ph", "pt", "r", "nh", "nt", "valid")
-        chunk = min(self.chunk_size, batch["ph"].shape[0])
-        chunks = base.pad_to_chunks({key: batch[key] for key in keys}, chunk)
-        ent, rel, rel_c, proj, centers = (params[key] for key in ("entity", "relation", "relation_c", "proj",
-                                                                     "centers"))
-        n_rel, n_clusters, k = rel_c.shape
+        lr, dist = cfg.learning_rate, self.effective_distance(Distance.from_any(cfg.distance))
+        phi, pti, ri, nhi, nti, vi = (chunk[key] for key in base.CHUNK_KEYS)
+        proj, rel_c, centers = tables["proj"], tables["relation_c"], tables["centers"]
+        n_clusters, k = rel_c.shape[1:]
+        ent, rel = fused[:n_entities], fused[n_entities:]
 
-        losses = []
-        for phi, pti, ri, nhi, nti, vi in zip(*(chunks[key] for key in keys)):
-            he, te, ne_h, ne_t = ent[phi], ent[pti], ent[nhi], ent[nti]
-            # relation_c[r, c] as row r·C + c of the flat [R·C, k] view.
-            flat = ri * n_clusters + _nearest(te - he, centers[ri])
-            w = proj[ri]
-            rv = rel_c.reshape(-1, k)[flat]
-            res_pos = transr._project(te, w) - transr._project(he, w) - rv
-            res_neg = transr._project(ne_t, w) - transr._project(ne_h, w) - rv
-            e_pos = distances.residual_energy(res_pos, dist)
-            e_neg = distances.residual_energy(res_neg, dist)
-            viol = (e_pos + cfg.margin > e_neg) & vi
-            losses.append(torch.sum(torch.where(viol, cfg.margin + e_pos - e_neg, 0.0)))
-            m = viol.to(res_pos.dtype)[:, None]
+        he, te, ne_h, ne_t = ent[phi], ent[pti], ent[nhi], ent[nti]
+        # relation_c[r, c] as row r·C + c of the flat [R·C, k] view.
+        cvec = rel_c.view(-1, k)
+        flat = ri * n_clusters + _nearest(te - he, centers[ri])
+        w, rv = proj[ri], cvec[flat]
+        loss, viol, m, x_pos, x_neg = transr.scores(w, he, te, ne_h, ne_t, rv, vi, cfg.margin, dist)
+        reg = 2.0 * self.alpha * (rv - rel[ri]) * m
+        idx = transr.step_entities_and_w_(ent, proj, chunk, w, he, te, ne_h, ne_t, x_pos, x_neg, lr,
+                                          cfg.scatter_mode)
+        scatter.scatter_add_(cvec, flat, lr * (x_pos - x_neg) - lr * reg, cfg.scatter_mode)
+        scatter.scatter_add_(rel, ri, lr * reg, cfg.scatter_mode)
+        if "counts" in tables:
+            tables["counts"].index_add_(0, flat, vi.to(tables["counts"].dtype))
 
-            def xs(res):
-                x = 2.0 * res
-                if dist == Distance.L1:
-                    x = torch.where(x > 0, 1.0, -1.0)
-                return x * m
+        # Norms of the touched rows; under a data-parallel step, every rank's rows.
+        e_rows, r_rows, c_rows = scatter.touched(idx), scatter.touched(ri), scatter.touched(flat)
+        ent[e_rows] = projections.sphere_norm(ent[e_rows])
+        rel[r_rows] = projections.ball_norm(rel[r_rows])
+        cvec[c_rows] = projections.sphere_norm(cvec[c_rows])
+        proj[r_rows] = projections.sphere_norm(proj[r_rows])
 
-            x_pos, x_neg = xs(res_pos), xs(res_neg)
-            wx_pos = torch.einsum("bji,bi->bj", w, x_pos)
-            wx_neg = torch.einsum("bji,bi->bj", w, x_neg)
-            idx = torch.cat([phi, pti, nhi, nti])
-            d_w = lr * (torch.einsum("bj,bi->bji", he - te, x_pos) - torch.einsum("bj,bi->bji", ne_h - ne_t, x_neg))
-            proj = scatter.scatter_add(proj, ri, d_w, cfg.scatter_mode)
-            delta = torch.cat([lr * wx_pos, -lr * wx_pos, -lr * wx_neg, lr * wx_neg])
-            ent = scatter.scatter_add(ent, idx, delta, cfg.scatter_mode)
-            reg = 2.0 * self.alpha * (rv - rel[ri]) * m
-            rel_c = scatter.scatter_add(rel_c.reshape(-1, k), flat, lr * (x_pos - x_neg) - lr * reg)
-            rel = scatter.scatter_add(rel, ri, lr * reg)
+        transr.ball_step_(fused, proj, ri, viol, lr, cfg.scatter_mode, phi, pti, transr.corrupted(chunk))
+        return loss
 
-            # Norms of the touched rows (the tables above are new, not the
-            # caller's); under a data-parallel step, every rank's rows.
-            e_rows, r_rows, c_rows = scatter.touched(idx), scatter.touched(ri), scatter.touched(flat)
-            ent[e_rows] = projections.sphere_norm(ent[e_rows])
-            rel[r_rows] = projections.ball_norm(rel[r_rows])
-            rel_c[c_rows] = projections.sphere_norm(rel_c[c_rows])
-            rel_c = rel_c.reshape(n_rel, n_clusters, k)
-            proj[r_rows] = projections.sphere_norm(proj[r_rows])
+    def chunk_counts(self, params: base.Params) -> torch.Tensor:
+        """int64 [R·C]: the valid samples routed to each (relation, cluster)."""
+        rel_c = params["relation_c"]
+        return torch.zeros(rel_c.shape[0] * rel_c.shape[1], dtype=torch.int64, device=rel_c.device)
 
-            # One masked iteration of ‖e·W‖ ≤ 1 on the three entity groups:
-            # tmp = 2·eW;  W −= lr·outer(e, tmp);  e −= lr·W'·tmp.
-            corrupted = torch.where(nhi != phi, nhi, nti)
-            pair_e = torch.cat([phi, pti, corrupted])
-            e3 = ent[pair_e].reshape(3, chunk, k)
-            w_upd = proj[ri]
-            p3 = torch.einsum("sbj,bji->sbi", e3, w_upd)
-            act = (torch.sum(torch.square(p3), dim=-1, keepdim=True) > 1.0) & viol.repeat(3).reshape(3, chunk, 1)
-            tmp3 = torch.where(act, 2.0 * p3, 0.0)
-            d_w = -lr * torch.einsum("sbj,sbi->bji", e3, tmp3)
-            proj = scatter.scatter_add(proj, ri, d_w, cfg.scatter_mode)
-            e_new = e3 - lr * torch.einsum("bji,sbi->sbj", w_upd + d_w, tmp3)
-            ent = scatter.scatter_add(ent, pair_e, (e_new - e3).reshape(3 * chunk, k), cfg.scatter_mode)
-        out = {"entity": ent, "relation": rel, "relation_c": rel_c, "proj": proj, "centers": centers}
-        return out, torch.stack(losses).sum()
+    def read_chunk_counts(self, counts: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``ctransr.routed``, the valid samples routed, and
+        ``ctransr.routed_top``, each relation's most-used cluster's samples
+        summed over the relations."""
+        per = counts.view(-1, self.n_clusters)
+        return {"ctransr.routed": per.sum(), "ctransr.routed_top": per.amax(dim=1).sum()}
 
     def sequential_update(self, params, batch: base.Batch, cfg: EmbeddingConfig) -> Tuple[base.Params, torch.Tensor]:
         """Parity mode is the fast update (no reference binary exists): never

@@ -9,9 +9,9 @@ double-buffered semantics instead (``Model.sequential_update``).
 Where ``kb2e_tpu`` jit-compiles a step and runs a whole epoch as one
 ``lax.scan``, the port runs eagerly: the epoch runner samples the whole
 epoch in one call, then applies its batches in order in a Python loop.
-For the chunk-sequential models (TransR) the epoch is cut into chunk-sized
-mini-batches instead, as ``kb2e_tpu`` cuts it; on one card a chunk whose
-update runs in place (TransR's) is recorded once as a CUDA graph and replayed
+For the chunk-sequential models (TransR, CTransR) the epoch is cut into
+chunk-sized mini-batches instead, as ``kb2e_tpu`` cuts it; on one card their
+chunk, which updates in place, is recorded once as a CUDA graph and replayed
 for every chunk (:class:`ChunkGraph`).  Given a mesh
 (``parallel/mesh.py``), the runner applies each batch through
 ``parallel/dist_step.py``: every rank draws the whole epoch, scores its share
@@ -171,7 +171,7 @@ class EpochRunner:
     and gathers its paths) and then applies them with :meth:`apply`, which tests can also
     feed injected batches.  With ``fused`` (the default for models that
     support it) the batches update one [N+R, k] table
-    (``Model.fused_table_update``).  A model with a ``chunk_size`` (TransR)
+    (``Model.fused_table_update``).  A model with a ``chunk_size`` (TransR, CTransR)
     gets the epoch as mini-batches of ``min(chunk_size, rows)`` instead of
     ``num_batches`` batches: batch boundaries carry no meaning for its
     chunk-sequential update, so the epoch's samples are padded with invalid
@@ -180,12 +180,14 @@ class EpochRunner:
     the params it was given are never written.
 
     On one CUDA device, with no mesh, a model whose chunk runs in place
-    (``Model.supports_inplace_chunk``), direct scatters and float32 tables,
-    :meth:`apply` replays the chunk as a CUDA graph (:class:`ChunkGraph`),
-    captured at its first call and again only when what the graph bakes in
-    changes.  Everywhere else (the CPU, a mesh, ``scatter_mode="dedup"``,
-    whose duplicate merge waits for the device) the chunks run eagerly
-    through ``Model.batch_update``: the same chunk body.
+    (``Model.supports_inplace_chunk``: TransR, CTransR), direct scatters and
+    float32 tables, :meth:`apply` replays the chunk as a CUDA graph
+    (:class:`ChunkGraph`), captured at its first call and again only when
+    what the graph bakes in changes (for CTransR also when a profiler starts
+    or stops recording: only a graph captured under one counts).  Everywhere
+    else (the CPU, a mesh, ``scatter_mode="dedup"``, whose duplicate merge
+    waits for the device) the chunks run eagerly through
+    ``Model.batch_update``: the same chunk body.
 
     With ``mesh`` (``parallel/mesh.py``) the runner is never fused (as in the
     JAX package), the batch must divide by the data axis, the chunk is
@@ -254,14 +256,16 @@ class EpochRunner:
 
     def _chunk_graph(self, params: Params, batches: Batch) -> Optional[ChunkGraph]:
         """The chunk's CUDA graph where :meth:`apply` can replay one, or None."""
-        ent, rows = params["entity"], batches["ph"].shape[1]
-        if not (self.mesh is None and self.model.supports_inplace_chunk and self.cfg.scatter_mode == "direct"
-                and ent.is_cuda and rows <= self.model.chunk_size
-                and all(params[key].dtype == torch.float32 for key in ("entity", "relation", "proj"))):
+        model, ent, rows = self.model, params["entity"], batches["ph"].shape[1]
+        tables = ("entity", "relation", *model.chunk_tables, *model.chunk_inputs)
+        if not (self.mesh is None and model.supports_inplace_chunk and self.cfg.scatter_mode == "direct"
+                and ent.is_cuda and rows <= model.chunk_size
+                and all(params[key].dtype == torch.float32 for key in tables)):
             return None
-        if self._graph is None or self._graph.key != ChunkGraph.key_of(params, rows, self.cfg):
+        counting = bool(model.chunk_counters) and profiling.recording()
+        if self._graph is None or self._graph.key != ChunkGraph.key_of(model, params, rows, self.cfg, counting):
             self._graph = None  # the old graph's memory goes before the new one is captured
-            self._graph = ChunkGraph(self.model, self.cfg, params, rows)
+            self._graph = ChunkGraph(model, self.cfg, params, rows, counting)
         return self._graph
 
     def __call__(self, params: Params, generator: torch.Generator, data: DeviceData) -> Tuple[Params, torch.Tensor]:
@@ -273,34 +277,45 @@ class ChunkGraph:
     CUDA graph, replayed for every chunk.
 
     The graph reads and writes buffers of its own at fixed addresses: the
-    fused [N+R, k] table and ``proj`` [R, k, k], a feed [6, chunk] of the
-    chunk's ids and ``valid`` (int64) and the chunk's loss.  Warm-up (on a
-    side stream, as capture requires) and capture run on these buffers
-    before any caller's tables are copied in: of ``params`` the graph takes
-    only the shapes and the device.
+    fused [N+R, k] table and the model's ``chunk_tables`` and
+    ``chunk_inputs`` (TransR: ``proj``; CTransR: ``proj``, ``relation_c``
+    and the ``centers`` it only reads), a feed [6, chunk] of the chunk's ids
+    and ``valid`` (int64) and the chunk's loss.  Warm-up (on a side stream,
+    as capture requires) and capture run on these buffers before any
+    caller's tables are copied in: of ``params`` the graph takes only the
+    shapes and the device.  A graph captured ``counting`` (while a profiler
+    records, for a model with ``chunk_counters``) also adds into the
+    model's count buffer, which :meth:`apply` reads into the program's
+    device counters once a call; any other graph has no kernel of it.
     """
 
     WARMUP = 2
 
     @staticmethod
-    def key_of(params: Params, chunk: int, cfg: EmbeddingConfig):
-        """What a graph bakes in: the device, the table shapes, the chunk and
-        the update's constants (TF32 picks the products' kernels)."""
-        return (params["entity"].device, params["entity"].shape[0], *params["proj"].shape, chunk, cfg.distance,
-                cfg.learning_rate, cfg.margin, torch.backends.cuda.matmul.allow_tf32)
+    def key_of(model: Model, params: Params, chunk: int, cfg: EmbeddingConfig, counting: bool):
+        """What a graph bakes in: the device, the table shapes, the chunk,
+        the update's constants (TF32 picks the products' kernels) and
+        whether it counts."""
+        shapes = tuple(tuple(params[key].shape) for key in ("entity", "relation", *model.chunk_tables,
+                                                             *model.chunk_inputs))
+        return (params["entity"].device, shapes, chunk, cfg.distance, cfg.learning_rate, cfg.margin,
+                torch.backends.cuda.matmul.allow_tf32, counting)
 
-    def __init__(self, model: Model, cfg: EmbeddingConfig, params: Params, chunk: int):
-        self.key = self.key_of(params, chunk, cfg)
-        device, (n_relations, k, _) = params["entity"].device, params["proj"].shape
+    def __init__(self, model: Model, cfg: EmbeddingConfig, params: Params, chunk: int, counting: bool = False):
+        self.model, self.key = model, self.key_of(model, params, chunk, cfg, counting)
+        device, (n_relations, k) = params["entity"].device, params["relation"].shape
         self.n_entities = n_entities = params["entity"].shape[0]
         self.fused = torch.zeros(n_entities + n_relations, k, device=device)
-        self.proj = torch.zeros(n_relations, k, k, device=device)
+        self.tables = {key: torch.zeros_like(params[key], memory_format=torch.contiguous_format)
+                       for key in (*model.chunk_tables, *model.chunk_inputs)}
+        self.counts = model.chunk_counts(params) if counting else None
+        tables = self.tables if self.counts is None else {**self.tables, "counts": self.counts}
         self.feed = torch.zeros(len(CHUNK_KEYS), chunk, dtype=torch.int64, device=device)
 
         def body() -> torch.Tensor:
             ids = dict(zip(CHUNK_KEYS, self.feed))
             ids["valid"] = ids["valid"] != 0
-            return model.chunk_update_(self.fused, self.proj, n_entities, ids, cfg)
+            return model.chunk_update_(self.fused, tables, n_entities, ids, cfg)
 
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
@@ -312,15 +327,19 @@ class ChunkGraph:
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.loss = body()
+        if self.counts is not None:
+            self.counts.zero_()  # what warm-up and capture added
 
     def apply(self, params: Params, batches: Batch) -> Tuple[Params, torch.Tensor]:
         """[n, chunk] chunks in order from ``params``' tables: fresh tables
-        and the summed loss.  A chunk costs the host one copy of its feed,
-        the replay and one copy of its loss."""
+        (those the chunk only reads are ``params``' own) and the summed
+        loss.  A chunk costs the host one copy of its feed, the replay and
+        one copy of its loss."""
         n = self.n_entities
         self.fused[:n].copy_(params["entity"])
         self.fused[n:].copy_(params["relation"])
-        self.proj.copy_(params["proj"])
+        for key, table in self.tables.items():
+            table.copy_(params[key])
         feed = torch.stack([batches[key].to(torch.int64) for key in CHUNK_KEYS], dim=1)
         losses = torch.empty(feed.shape[0], device=self.fused.device)
         for i in range(feed.shape[0]):
@@ -328,8 +347,15 @@ class ChunkGraph:
                 self.feed.copy_(feed[i])
                 self.graph.replay()
                 losses[i].copy_(self.loss)
+        if self.counts is not None:
+            for name, value in self.model.read_chunk_counts(self.counts).items():
+                profiling.count_device(name, value)
+            self.counts.zero_()
         fused = self.fused.clone()
-        return {"entity": fused[:n], "relation": fused[n:], "proj": self.proj.clone()}, losses.sum()
+        out = {"entity": fused[:n], "relation": fused[n:]}
+        out.update({key: self.tables[key].clone() for key in self.model.chunk_tables})
+        out.update({key: params[key] for key in self.model.chunk_inputs})
+        return out, losses.sum()
 
 
 def make_epoch_runner(model: Model, cfg: EmbeddingConfig, batch_size: int, num_batches: int,

@@ -204,6 +204,109 @@ def test_batch_update_equals_jax(b, chunk_size, scatter_mode, monkeypatch):
         assert not torch.equal(got["relation_c"], params["relation_c"])
 
 
+def _out_of_place_batch_update(m, params, batch, cfg):
+    """CTransR's fast update as it was before its chunk ran in place on
+    TransR's stages: a copy of every table a scatter, the chunks in order."""
+    from kb2e_tpu_torch.models import base, transr
+    from kb2e_tpu_torch.ops import distances, projections, scatter
+
+    lr, dist = cfg.learning_rate, m.effective_distance(Distance.from_any(cfg.distance))
+    chunk = min(m.chunk_size, batch["ph"].shape[0])
+    chunks = base.pad_to_chunks({key: batch[key] for key in IDX_KEYS}, chunk)
+    ent, rel, rel_c, proj, centers = (params[key] for key in KEYS)
+    n_rel, n_clusters, k = rel_c.shape
+    losses = []
+    for phi, pti, ri, nhi, nti, vi in zip(*(chunks[key] for key in IDX_KEYS)):
+        he, te, ne_h, ne_t = ent[phi], ent[pti], ent[nhi], ent[nti]
+        flat = ri * n_clusters + ctransr._nearest(te - he, centers[ri])
+        w = proj[ri]
+        rv = rel_c.reshape(-1, k)[flat]
+        res_pos = transr._project(te, w) - transr._project(he, w) - rv
+        res_neg = transr._project(ne_t, w) - transr._project(ne_h, w) - rv
+        e_pos = distances.residual_energy(res_pos, dist)
+        e_neg = distances.residual_energy(res_neg, dist)
+        viol = (e_pos + cfg.margin > e_neg) & vi
+        losses.append(torch.sum(torch.where(viol, cfg.margin + e_pos - e_neg, 0.0)))
+        m_ = viol.to(res_pos.dtype)[:, None]
+
+        def xs(res):
+            x = 2.0 * res
+            if dist == Distance.L1:
+                x = torch.where(x > 0, 1.0, -1.0)
+            return x * m_
+
+        x_pos, x_neg = xs(res_pos), xs(res_neg)
+        wx_pos = torch.einsum("bji,bi->bj", w, x_pos)
+        wx_neg = torch.einsum("bji,bi->bj", w, x_neg)
+        idx = torch.cat([phi, pti, nhi, nti])
+        d_w = lr * (torch.einsum("bj,bi->bji", he - te, x_pos) - torch.einsum("bj,bi->bji", ne_h - ne_t, x_neg))
+        proj = scatter.scatter_add(proj, ri, d_w, cfg.scatter_mode)
+        delta = torch.cat([lr * wx_pos, -lr * wx_pos, -lr * wx_neg, lr * wx_neg])
+        ent = scatter.scatter_add(ent, idx, delta, cfg.scatter_mode)
+        reg = 2.0 * m.alpha * (rv - rel[ri]) * m_
+        rel_c = scatter.scatter_add(rel_c.reshape(-1, k), flat, lr * (x_pos - x_neg) - lr * reg)
+        rel = scatter.scatter_add(rel, ri, lr * reg)
+        e_rows, r_rows, c_rows = scatter.touched(idx), scatter.touched(ri), scatter.touched(flat)
+        ent[e_rows] = projections.sphere_norm(ent[e_rows])
+        rel[r_rows] = projections.ball_norm(rel[r_rows])
+        rel_c[c_rows] = projections.sphere_norm(rel_c[c_rows])
+        rel_c = rel_c.reshape(n_rel, n_clusters, k)
+        proj[r_rows] = projections.sphere_norm(proj[r_rows])
+        corrupted = torch.where(nhi != phi, nhi, nti)
+        pair_e = torch.cat([phi, pti, corrupted])
+        e3 = ent[pair_e].reshape(3, chunk, k)
+        w_upd = proj[ri]
+        p3 = torch.einsum("sbj,bji->sbi", e3, w_upd)
+        act = (torch.sum(torch.square(p3), dim=-1, keepdim=True) > 1.0) & viol.repeat(3).reshape(3, chunk, 1)
+        tmp3 = torch.where(act, 2.0 * p3, 0.0)
+        d_w = -lr * torch.einsum("sbj,sbi->bji", e3, tmp3)
+        proj = scatter.scatter_add(proj, ri, d_w, cfg.scatter_mode)
+        e_new = e3 - lr * torch.einsum("bji,sbi->sbj", w_upd + d_w, tmp3)
+        ent = scatter.scatter_add(ent, pair_e, (e_new - e3).reshape(3 * chunk, k), cfg.scatter_mode)
+    out = {"entity": ent, "relation": rel, "relation_c": rel_c, "proj": proj, "centers": centers}
+    return out, torch.stack(losses).sum()
+
+
+@pytest.mark.parametrize("b", [48, 40])  # three whole chunks of 16; a padded last chunk
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_in_place_chunk_equals_the_out_of_place_body_bit_for_bit(b, distance, monkeypatch):
+    m = get_model("ctransr")
+    monkeypatch.setattr(m, "chunk_size", 16)
+    host = _dyadic(N_ENT, N_REL, 8, seed=50 + int(distance))
+    arrays = _batch_arrays(51 + b, b)
+    batch = dict(zip(IDX_KEYS, map(torch.from_numpy, arrays)))
+    cfg = EmbeddingConfig(embedding_size=8, learning_rate=1 / 16, margin=1.0, distance=int(distance))
+    # Duplicate entity rows and (relation, cluster) pairs inside a chunk.
+    assert len(np.unique(arrays[0][:16])) < 16 and len(np.unique(arrays[2][:16])) < 16
+    got, loss = m.batch_update(params_from_numpy(host, "cpu"), batch, cfg)
+    want, want_loss = _out_of_place_batch_update(m, params_from_numpy(host, "cpu"), batch, cfg)
+    for key in KEYS:
+        assert torch.equal(got[key], want[key]), key
+        assert key == "centers" or not torch.equal(got[key], torch.from_numpy(host[key])), key
+    assert torch.equal(loss, want_loss) and float(loss) > 0
+
+
+def test_the_chunk_counts_each_valid_sample_at_its_cluster():
+    m = get_model("ctransr")
+    host = _f32(_tables(60, 8))
+    arrays = _batch_arrays(61, 40)
+    params = params_from_numpy(host, "cpu")
+    tables = {"proj": params["proj"].clone(), "relation_c": params["relation_c"].clone(),
+              "centers": params["centers"], "counts": m.chunk_counts(params)}
+    assert tables["counts"].shape == (N_REL * N_CLUSTERS,) and tables["counts"].dtype == torch.int64
+    fused = torch.cat([params["entity"], params["relation"]])
+    m.chunk_update_(fused, tables, N_ENT, dict(zip(IDX_KEYS, map(torch.from_numpy, arrays))),
+                    EmbeddingConfig(embedding_size=8, learning_rate=0.05))
+    ph, pt, r, _, _, valid = arrays
+    flat = r * N_CLUSTERS + ctransr.assign_clusters(host["entity"], host["centers"], ph, pt, r)
+    want = np.bincount(flat[valid], minlength=N_REL * N_CLUSTERS)
+    np.testing.assert_array_equal(tables["counts"].numpy(), want)
+    read = m.read_chunk_counts(tables["counts"])
+    assert int(read["ctransr.routed"]) == int(valid.sum())
+    assert int(read["ctransr.routed_top"]) == int(want.reshape(N_REL, N_CLUSTERS).max(1).sum())
+    assert m.chunk_counters == tuple(read)
+
+
 def test_parity_mode_is_the_fast_update_and_never_reaches_a_kernel(monkeypatch, tiny_kg_dir):
     def refuse(*args, **kwargs):
         raise AssertionError("CTransR's parity mode reached TransR's sequential-update wrapper")

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5); and TransR's fast
-chunk replayed as a CUDA graph by the epoch runner against the same chunk
-run eagerly.  K3, K4 and K5 run
+TransH update (K4) and the sequential TransR update (K5); and TransR's and
+CTransR's fast chunks replayed as a CUDA graph by the epoch runner against
+the same chunks run eagerly.  K3, K4 and K5 run
 samples that share no row side by side; batches built to stress that
 schedule (a chain of the whole batch, no shared row at all, fewer samples
 than resident blocks, no update at all) hold them bit-equal to their plain
@@ -21,7 +21,7 @@ import torch
 
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
-from kb2e_tpu_torch.models import get_model
+from kb2e_tpu_torch.models import ctransr, get_model
 from kb2e_tpu_torch.ops import distances, rank_count, schedule, transe_update, transh_update, transr_update
 from kb2e_tpu_torch.parallel import eval as par_eval
 from kb2e_tpu_torch.train import step as step_lib
@@ -811,3 +811,80 @@ def test_transr_dedup_runs_eagerly_on_the_card(cuda):
     for key in params:
         assert torch.equal(got[key], want[key]), key
     assert torch.equal(loss, want_loss)
+
+
+# --- CTransR's fast chunk on TransR's stages, as the same CUDA graph ------------------------
+
+
+def _ctransr_graph_case(cuda, distance):
+    n, n_rel, k, chunk, n_chunks = 300, 40, 16, 32, 5
+    cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16, margin=1.0, distance=int(distance))
+    model = get_model("ctransr")
+    runner = step_lib.make_epoch_runner(model, cfg, chunk, n_chunks)
+    assert runner.chunk == chunk
+    params = _dyadic_tables(n, n_rel, k, 21 + int(distance), cuda)
+    rng = np.random.default_rng(22 + int(distance))
+    for key in ("relation_c", "centers"):
+        params[key] = torch.from_numpy(np.clip(np.round(rng.normal(size=(n_rel, model.n_clusters, k)) * 3) / 8, -1, 1)
+                                       .astype(np.float32)).to(cuda)
+    return model, cfg, runner, params, _chunk_feed(n_chunks, chunk, n, n_rel, 23 + int(distance), cuda), n
+
+
+def _routed(model, params, feed, cfg):
+    """The eager chunks in order, and the valid samples each (relation,
+    cluster) took, routed on each chunk's start tables: [R, C]."""
+    n_rel, n_clusters = params["relation_c"].shape[:2]
+    counts = torch.zeros(n_rel * n_clusters, dtype=torch.int64, device=params["entity"].device)
+    for i in range(feed["ph"].shape[0]):
+        one = {key: v[i] for key, v in feed.items()}
+        h, t, r = one["ph"].long(), one["pt"].long(), one["r"].long()
+        ent = params["entity"]
+        flat = r * n_clusters + ctransr._nearest(ent[t] - ent[h], params["centers"][r])
+        counts.index_add_(0, flat[one["valid"]], torch.ones_like(flat[one["valid"]]))
+        params, _ = model.batch_update(params, one, cfg)
+    return params, counts.view(n_rel, n_clusters)
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+def test_ctransr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
+    model, cfg, runner, params, feed, n = _ctransr_graph_case(cuda, distance)
+    before = {key: v.clone() for key, v in params.items()}
+    got, loss = runner.apply(params, feed, n)
+    assert runner._graph is not None and runner._graph.counts is None  # no profiler: no count kernel
+    want, want_loss = _eager_chunks(model, params, feed, cfg)
+    assert sorted(got) == sorted(params) and got["centers"] is params["centers"]
+    for key in params:
+        assert torch.equal(got[key], want[key]), key
+        assert torch.equal(params[key], before[key]), key  # warm-up and capture left the inputs alone
+    assert torch.equal(loss, want_loss) and float(loss) > 0
+
+
+def test_ctransr_chunk_graph_is_captured_once_counts_its_routes_and_replays_every_chunk(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cfg, runner, params, feed, n = _ctransr_graph_case(cuda, Distance.L1)
+    first = {key: v[:1] for key, v in feed.items()}
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            one, _ = runner.apply(params, first, n)  # a start check's call: one chunk
+            graph = runner._graph
+            assert graph.counts is not None
+            out, loss = runner.apply(one, feed, n)  # then a whole feed
+            assert runner._graph is graph
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    n_chunks = feed["ph"].shape[0]
+    assert counters["train.chunks"] == counters["train.chunks_replayed"] == 1 + n_chunks
+    mid, first_counts = _routed(model, params, first, cfg)
+    want, feed_counts = _routed(model, mid, feed, cfg)
+    for key in want:
+        assert torch.equal(out[key], want[key]), key
+    assert counters["ctransr.routed"] == int(first_counts.sum() + feed_counts.sum()) == int(feed["valid"][:1].sum()
+                                                                                          + feed["valid"].sum())
+    assert counters["ctransr.routed_top"] == int(first_counts.amax(1).sum() + feed_counts.amax(1).sum())
+    # With the profiler stopped the graph is captured again, without the count.
+    again, _ = runner.apply(params, first, n)
+    assert runner._graph is not graph and runner._graph.counts is None
+    assert torch.equal(again["entity"], one["entity"])

@@ -230,7 +230,8 @@ EVAL_SNAPSHOT = {
 TRAIN_SNAPSHOT = {
     "spans": {"kb2e.train.sample": _span(4, 0.01), "kb2e.train.apply": _span(4, 0.3),
               "kb2e.train.batch": _span(400, 0.28)},
-    "counters": {"sampler.slots": 20000, "sampler.retried": 13, "train.chunks": 400, "train.chunks_replayed": 300},
+    "counters": {"sampler.slots": 20000, "sampler.retried": 13, "train.chunks": 400, "train.chunks_replayed": 300,
+                 "ctransr.routed": 19000, "ctransr.routed_top": 6650},
 }
 
 
@@ -244,6 +245,7 @@ TRAIN_SNAPSHOT = {
     ("train.batch_host_us", TRAIN_SNAPSHOT, 700.0),
     ("train.sampler_retry_share", TRAIN_SNAPSHOT, 0.065),
     ("train.chunk_graph_share", TRAIN_SNAPSHOT, 75.0),
+    ("train.cluster_top_share", TRAIN_SNAPSHOT, 35.0),
 ])
 def test_each_reader_reads_its_number_and_none_without_a_root_span(monkeypatch, metric, snap, want):
     reader = _reader(metric)

@@ -399,23 +399,33 @@ def test_a_cpu_runner_counts_its_chunks_and_replays_none(mesh):
 
 
 def test_ctransr_runner_goes_through_its_own_batch_update(monkeypatch):
+    # On the CPU the chunks run eagerly, one ``batch_update`` call each,
+    # which applies CTransR's own in-place chunk (three pair groups, the
+    # clusters), never TransR's four-group one.
     from kb2e_tpu_torch.models import ctransr, transr
 
     runner, params, feed = _runner_case("ctransr")
-    calls = []
-    own = ctransr.CTransR.batch_update
+    calls, chunks = [], []
+    own, chunk = ctransr.CTransR.batch_update, ctransr.CTransR.chunk_update_
 
     def spy(self, params, batch, cfg):
         calls.append(batch["ph"].shape[0])
         return own(self, params, batch, cfg)
 
+    def spy_chunk(self, fused, tables, n_entities, one, cfg):
+        chunks.append(sorted(tables))
+        return chunk(self, fused, tables, n_entities, one, cfg)
+
     def refuse(*args, **kwargs):
         raise AssertionError("CTransR went through TransR's chunk body")
 
     monkeypatch.setattr(ctransr.CTransR, "batch_update", spy)
+    monkeypatch.setattr(ctransr.CTransR, "chunk_update_", spy_chunk)
     monkeypatch.setattr(transr.TransR, "chunk_update_", refuse)
-    runner.apply(params, feed, N_ENT)
-    assert calls == [16, 16, 16] and not runner.model.supports_inplace_chunk
+    out, _ = runner.apply(params, feed, N_ENT)
+    assert calls == [16, 16, 16] and runner.model.supports_inplace_chunk
+    assert chunks == [["centers", "proj", "relation_c"]] * 3
+    assert sorted(out) == sorted(params) and out["centers"] is params["centers"]
 
 
 # --- loop and CLI -----------------------------------------------------------------
