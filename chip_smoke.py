@@ -41,7 +41,12 @@ non-zero exit on any failure:
               the whole batch through one relation or one entity, no shared
               row, fewer samples than resident blocks, no valid sample) and
               on a sampler batch of a skewed graph (skewed_batch) at the
-              main path's setting (TransE: L1 and L2);
+              main path's setting (TransE: L1 and L2); TransE's fast batch
+              (``ops/transe_fast.py``) through its wrapper against
+              ``fused_table_update`` on the first batch of a sampler epoch
+              at K = 1 and 8 (4,831 and 38,648 rows; L1 and L2), bit for bit
+              on dyadic tables and within a unit in the last place on
+              TransE-init tables, one launch of each kernel a call;
 4. main     — the main paths on an FB15k-shaped data directory (bench.py's
               configuration), each with the launch counts set to 0 just
               before it and read just after:
@@ -50,8 +55,9 @@ non-zero exit on any failure:
                 and ``1``: one rank-count launch per batch, and the first
                 4,096 ranks agree with the plain version on the card;
               * fast training: ``kb2e_tpu_torch.cli.train_transe.main`` for 2
-                epochs; the loss is finite and falls, and ``eval_transe``
-                scores the written files (rank count L1);
+                epochs, one launch of each of TransE's three fast-batch
+                kernels a batch (200); the loss is finite and falls, and
+                ``eval_transe`` scores the written files (rank count L1);
               * parity training: 1 epoch of ``--update-mode parity`` for L1
                 and for L2, one sequential-update launch per batch (100);
               * quality: the planted-KG setting of QUALITY.md trained in both
@@ -131,7 +137,8 @@ non-zero exit on any failure:
               TransE at K = 1 and K = 8 negatives and TransH at K = 8 here
               (``--quality-scale`` adds TransR and CTransR at K = 8,
               warm-started from the K = 1 TransE files), each trained by
-              ``train_<model>`` and scored by ``eval_<model>`` with one K1
+              ``train_<model>`` (TransE: one launch of each fast-batch
+              kernel a batch) and scored by ``eval_<model>`` with one K1
               launch a batch of each group; on TransE K = 8's trained tables
               the first N_CHECK ranks equal K1's plain version; each cell's
               filtered Hits@10 within SCALE_HITS_TOL and filtered MR within
@@ -183,7 +190,11 @@ non-zero exit on any failure:
               beside its longest chain of samples that share a row (from the
               schedule's predecessors) and its count of updates, with the
               update pass's resident blocks per SM, the device time of one
-              call by kernel, and the wrapper's id check alone.  Then
+              call by kernel, and the wrapper's id check alone.  TransE's
+              fast batch a batch over a sampler epoch at K = 1 and 8: the
+              wrapper on CUDA events, the device time by kernel,
+              ``fused_table_update`` on the same batches and the bound from
+              ``portbench/reference/transe.py::update_work``.  Then
               CTransR's fast epoch (the loop's walls, the breakdown on its
               trained tables), its clustered eval, relation prediction and
               the loader, and PTransE's fast epoch (the breakdown on its
@@ -348,9 +359,9 @@ def device_phase():
 
 
 def kernel_modules():
-    from kb2e_tpu_torch.ops import rank_count, transe_update, transh_update, transr_update
+    from kb2e_tpu_torch.ops import rank_count, transe_fast, transe_update, transh_update, transr_update
 
-    return rank_count, transe_update, transh_update, transr_update
+    return rank_count, transe_update, transh_update, transr_update, transe_fast
 
 
 def build_phase():
@@ -363,19 +374,24 @@ def build_phase():
           flush=True)
     # ptxas's report per kernel and template; the template's bool is kL2 for
     # the rank count and kL1 for the TransE and TransR decide passes; the
-    # other kernels have no template (the TransH update is L1 only; the
-    # TransH and TransR update passes and the loss kernel read x, not the
-    # distance; the TransE update pass takes it as an argument).
+    # TransE fast batch's templates are printed as they are (score: chunks a
+    # lane, vector loads, L1; apply: chunks a lane, vector loads); the other
+    # kernels have no template (the TransH update is L1 only; the TransH and
+    # TransR update passes and the loss kernel read x, not the distance; the
+    # TransE update pass takes it as an argument).
     distance_of = {"rank_count_kernel": ("L1", "L2"), "transe_decide_kernel": ("L2", "L1"),
                    "transr_decide_kernel": ("L2", "L1")}
     for path in paths:
         entry = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
-            found = re.search(r"([A-Za-z_]+_kernel)(?:ILb([01])E)?", line) if "Compiling entry" in line else None
+            found = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[bi]\d+E)+))?", line) if "Compiling entry" in line else None
             if found:
                 entry = f"{path.stem.rsplit('_', 1)[0]}: {found[1]}"
-                if found[2]:
-                    entry += f" {distance_of[found[1]][int(found[2])]}"
+                args = re.findall(r"L[bi](\d+)E", found[2] or "")
+                if found[1] in distance_of:
+                    entry += f" {distance_of[found[1]][int(args[0])]}"
+                elif args:
+                    entry += f" <{', '.join(args)}>"
             elif "registers" in line or "spill" in line:
                 print(f"[build] {entry}: {line.replace('ptxas info    :', '').strip()}", flush=True)
 
@@ -453,6 +469,7 @@ def kernels_phase(tables, transh, transr, data_dir, work):
         plain = {job: pool.submit(transr_plain_job, paths["tables"], paths[job[0]], *job[1:]) for job in jobs}
         ctx = dict(rank_worst=rank_kernel_checks(tables), train_data=data, skewed=skewed)
         ctx.update(update_kernel_checks(tables, data, skewed))
+        ctx.update(transe_fast_kernel_checks(tables, data))
         ctx.update(transh_kernel_checks(transh, data, skewed))
         ctx.update(transr_kernel_checks(transr, batches, plain))
     return ctx
@@ -570,6 +587,92 @@ def update_kernel_checks(tables, data, skewed):
     return dict(update_worst=worst, update_args=(tables["entity"], tables["relation"], *sampler),
                 update_stress={kind: [batches[kind][key] for key in IDX_KEYS] for kind in STRESS},
                 update_plain_ms={name: plain_ms[name, "sampler", "TransE-init"] for name in worst})
+
+
+# The TransE training cells' K negatives: sampler batches of 4,831 and 38,648 rows.
+FAST_NEGATIVES = (1, 8)
+
+
+def fast_batch_launches(model: str, n_batches: int) -> dict:
+    """The launch counts of ``n_batches`` batches of ``model``'s fast epoch on
+    the card: for TransE (float32 tables) the three kernels of its fast batch
+    (``ops/transe_fast.py``) once a batch each; no other model launches one."""
+    from kb2e_tpu_torch.ops import transe_fast
+
+    return {name: n_batches for name in transe_fast.KERNEL_NAMES} if model == "transe" else {}
+
+
+def fast_epoch_feed(data, k_neg: int):
+    """bench.py's configuration with ``k_neg`` negatives, and one epoch of the
+    port's sampler under it on the FB15k-shaped graph, [N_BATCHES, rows]."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.train import step
+
+    cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=1, num_batches=N_BATCHES,
+                          num_negatives=k_neg)
+    runner = step.make_epoch_runner(get_model("transe"), cfg, TRAIN_BATCH, N_BATCHES)
+    return cfg, runner.sample(torch.Generator(device="cuda").manual_seed(SEED + k_neg), data)
+
+
+def transe_fast_kernel_checks(tables, data):
+    """TransE's fast batch through its wrapper (``TransE.fused_table_kernel``,
+    ``ops/transe_fast.py``) against ``TransE.fused_table_update`` on the card,
+    on the first batch of a sampler epoch at each of FAST_NEGATIVES (B 4,831
+    and 38,648 rows), L1 and L2, from one start each: bit for bit on dyadic
+    tables (multiples of 1/16 in [-1/2, 1/2], most rows of norm above 1, lr
+    1/16: every sum of the batch exact in any order); on TransE-init tables
+    at lr 0.001 within 1e-7 (L2 1e-6) and in no more elements than four
+    times those in which ``fused_table_update`` parts from itself, or a
+    thousandth of them; the loss within 1e-6 of the plain version's (1e-5
+    on TransE-init tables), summed in another order.  The launch counts are
+    set to 0 just before each call: one launch of each kernel.  Returns the
+    largest table difference and the epochs for the timing phase."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.ops import transe_fast
+
+    model, feeds, cfgs, worst = get_model("transe"), {}, {}, 0.0
+    rng = np.random.default_rng(SEED + 3)
+    dyadic_tables = [torch.from_numpy(np.clip(np.round(rng.normal(size=(n, K)) * 3) / 16, -0.5, 0.5)
+                                      .astype(np.float32)).cuda() for n in (N_ENTITIES, N_RELATIONS)]
+    snapshots = {"dyadic": (dyadic_tables, 1 / 16), "TransE-init": ([tables["entity"], tables["relation"]], 0.001)}
+    one_each = {name: 1 for name in transe_fast.KERNEL_NAMES}
+    for k_neg in FAST_NEGATIVES:
+        cfg, feeds[k_neg] = fast_epoch_feed(data, k_neg)
+        cfgs[k_neg] = cfg
+        first = {key: v[:1] for key, v in feeds[k_neg].items()}
+        batch = {key: v[0] for key, v in feeds[k_neg].items()}
+        for distance in (Distance.L1, Distance.L2):
+            for what, (snapshot, lr) in snapshots.items():
+                c = cfg.replace(distance=distance, learning_rate=lr)
+                start = model.fuse_params(dict(zip(("entity", "relation"), snapshot)))
+                table = start.clone()
+                run = model.fused_table_kernel(table, N_ENTITIES, first, c)
+                reset_all_launch_counts()
+                run(0)
+                torch.cuda.synchronize()
+                launches = all_launch_counts()
+                what_ = f"transe_fast {distance.name} K={k_neg} ({first['ph'].shape[1]} rows) on {what} tables"
+                check(launches == one_each, f"{what_}: launches {launches}, expected {one_each}")
+                want, want_loss = model.fused_table_update(start, N_ENTITIES, batch, c)
+                again, _ = model.fused_table_update(start, N_ENTITIES, batch, c)
+                apart, itself = int((table != want).sum()), int((again != want).sum())
+                err, loss, want_loss = float((table - want).abs().max()), float(run.loss[0]), float(want_loss)
+                if what == "dyadic":
+                    check(apart == 0, f"{what_}: {apart} elements differ (max {err:.3e}) from the plain version")
+                    check(abs(loss - want_loss) <= 1e-6 * abs(want_loss), f"{what_}: loss {loss!r} against {want_loss!r}")
+                else:
+                    atol = 1e-7 if distance == Distance.L1 else 1e-6
+                    check(err <= atol and apart <= 4 * itself + want.numel() // 1000,
+                          f"{what_}: {apart} elements differ, max {err:.3e} (atol {atol}); the plain version "
+                          f"parts from itself in {itself}")
+                    check(abs(loss - want_loss) <= 1e-5 * abs(want_loss), f"{what_}: loss {loss!r} against {want_loss!r}")
+                check(want_loss > 0, f"{what_}: no sample violates its margin")
+                worst = max(worst, err)
+                print(f"[kernels] {what_}, lr {lr}: launches {launches}; {apart} of {want.numel()} elements differ "
+                      f"from fused_table_update's (max {err:.3e}; it parts from itself in {itself}); loss "
+                      f"{loss:.6f} against {want_loss:.6f}", flush=True)
+    return dict(fast_worst=worst, fast_feeds=feeds, fast_cfgs=cfgs)
 
 
 def transh_kernel_checks(transh, data, skewed):
@@ -1029,14 +1132,16 @@ def eval_run(argv, expect: dict, what: str, model: str = "transe"):
 
 
 def training_paths(work: str, data_dir: str):
-    """bench.py's configuration through ``train_transe``: 2 fast epochs, the
-    written files scored by ``eval_transe``; 1 parity epoch per distance."""
+    """bench.py's configuration through ``train_transe``: 2 fast epochs (one
+    launch of each fast-batch kernel a batch), the written files scored by
+    ``eval_transe``; 1 parity epoch per distance."""
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import rank_count, transe_update
 
     out = os.path.join(work, "trained_fast")
-    fast, _ = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2"],
-                        os.path.join(work, "fast.jsonl"), {}, "train_transe fast, 2 epochs")
+    fast, fast_launches = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2"],
+                                    os.path.join(work, "fast.jsonl"), fast_batch_launches("transe", 2 * N_BATCHES),
+                                    "train_transe fast, 2 epochs")
     check(fast[1]["loss"] < fast[0]["loss"], "the fast loss does not fall")
     check(all(r["batch_size"] == TRAIN_BATCH for r in fast), "batch size differs from |T| / 100")
     for name in ("entity2vec.bern", "relation2vec.bern", "embedding_meta.json"):
@@ -1044,7 +1149,7 @@ def training_paths(work: str, data_dir: str):
     n_eval = -(-2 * N_TEST // EVAL_BATCH)
     trained = eval_run(["--datadir", data_dir, "--outdir", out, "--size", str(K), "--method", "1", "--seed", str(SEED)],
                        {rank_count.KERNEL_NAMES[Distance.L1]: n_eval}, "eval_transe on the fast-trained files")
-    results = dict(fast=fast, fast_eval=trained)
+    results = dict(fast=fast, fast_launches=fast_launches, fast_eval=trained)
     for distance in (Distance.L1, Distance.L2):
         name = transe_update.KERNEL_NAMES[distance]
         records, launches = train_run(
@@ -1111,7 +1216,9 @@ def transr_training_paths(work: str, data_dir: str):
 def quality_path(work: str, model: str, bands: dict, parity_kernel, reference: str, flags=QUALITY_FLAGS):
     """QUALITY.md's planted-KG setting for ``model`` in both modes, each
     scored by ``eval_<model>``; filtered Hits@10 must land in
-    ``bands[mode]``.  The parity run launches ``parity_kernel`` once a batch;
+    ``bands[mode]``.  The fast run of TransE launches its three fast-batch
+    kernels once a batch each, of the other models none; the parity run
+    launches ``parity_kernel`` once a batch;
     a model without a parity mode (``parity_kernel`` None: CTransR) must warn
     and launch no kernel, and a cluster-aware model's eval launches none."""
     import warnings
@@ -1128,7 +1235,8 @@ def quality_path(work: str, model: str, bands: dict, parity_kernel, reference: s
     eval_expect = {} if m.cluster_aware else {rank_count.KERNEL_NAMES[Distance.L1]: eval_launches(kg, m.needs_projection)}
     parity_expect = {} if parity_kernel is None else {parity_kernel: QUALITY_BATCHES * QUALITY_EPOCHS}
     hits = {}
-    for mode, expect in (("fast", {}), ("parity", parity_expect)):
+    fast_expect = fast_batch_launches(model, QUALITY_BATCHES * QUALITY_EPOCHS)
+    for mode, expect in (("fast", fast_expect), ("parity", parity_expect)):
         out = os.path.join(work, f"planted_{model}_{mode}")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1669,7 +1777,8 @@ def timed_build_centers():
 
 
 def scale_cell(work: str, kg: str, card: str, cell) -> dict:
-    """One cell of SCALE_CELLS: ``train_<model>`` (no kernel launch), then
+    """One cell of SCALE_CELLS: ``train_<model>`` (TransE: its fast-batch
+    kernels once a batch each; the other models no kernel launch), then
     ``eval_<model>`` on the written files (one K1 launch per batch of each
     group, none for CTransR).  For TransE at K = 8, K1's counts of the first
     N_CHECK queries on the trained tables against its plain version."""
@@ -1687,7 +1796,8 @@ def scale_cell(work: str, kg: str, card: str, cell) -> dict:
         argv += ["--seeddatadir", os.path.join(work, "scale_transe_k1"), "--seedmethod", "1"]
     t0 = time.perf_counter()
     with timed_build_centers() as centers_s:
-        records, _ = train_run(argv, os.path.join(work, f"scale_{model_name}_k{k_neg}.jsonl"), {},
+        records, _ = train_run(argv, os.path.join(work, f"scale_{model_name}_k{k_neg}.jsonl"),
+                               fast_batch_launches(model_name, SCALE_EPOCHS * N_BATCHES),
                                f"scale {what}, {SCALE_EPOCHS} epochs", model=model_name)
     train_s = time.perf_counter() - t0
     check(len(records) == SCALE_EPOCHS, f"scale {what}: {len(records)} epochs")
@@ -2743,6 +2853,85 @@ def update_timing(ctx, results):
     return records
 
 
+def transe_fast_timing(ctx, results):
+    """TransE's fast batch per batch over the 100 batches of the kernels
+    phase's sampler epoch at each of FAST_NEGATIVES, from TransE-init tables
+    (L1, lr 0.001: bench.py's configuration): the wrapper's three launches a
+    batch on CUDA events, their device time by kernel from torch.profiler,
+    ``fused_table_update`` on the same batches, and the bound from the
+    benchmark's count (``portbench/reference/transe.py::update_work``).  The
+    launch counts are set to 0 just before the timed runs and must read one
+    launch of each kernel a batch; a record's ``launches`` are those of the
+    main path's 2 fast epochs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.ops import transe_fast
+    from portbench.reference import transe as ref_transe
+
+    model, records, reps = get_model("transe"), [], 5
+    start = model.fuse_params({"entity": ctx["update_args"][0], "relation": ctx["update_args"][1]})
+    for k_neg, feed in ctx["fast_feeds"].items():
+        cfg, rows = ctx["fast_cfgs"][k_neg], feed["ph"].shape[1]
+        run = model.fused_table_kernel(start.clone(), N_ENTITIES, feed, cfg)
+
+        def epoch():
+            for i in range(N_BATCHES):
+                run(i)
+
+        epoch()  # warm-up
+        reset_all_launch_counts()
+        ms = time_ms(epoch, reps, warmup=0) / N_BATCHES
+        launches = all_launch_counts()
+        expect = fast_batch_launches("transe", reps * N_BATCHES)
+        check(launches == expect, f"transe_fast K={k_neg} timing: launches {launches}, expected {expect}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            epoch()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                name = next((n for n in transe_fast.KERNEL_NAMES if n in e.key), e.key[:40])
+                by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / N_BATCHES
+        device_ms = sum(by_kernel.values())
+        batches = [{key: v[i] for key, v in feed.items()} for i in range(N_BATCHES)]
+
+        def plain_epoch():
+            table = start
+            for b in batches:
+                table, _ = model.fused_table_update(table, N_ENTITIES, b, cfg)
+
+        plain_ms = time_ms(plain_epoch, 3, warmup=1) / N_BATCHES
+        work = ref_transe.update_work(K, feed)
+        b_ms = 1e3 * sum(max(ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) for ops, nbytes in work) / N_BATCHES
+        b_by = "bytes" if sum(nb / HBM_BYTES_PER_S for _, nb in work) >= sum(op / FP32_FLOPS for op, _ in work) \
+            else "operations"
+        print(f"[timing] transe_fast L1 K={k_neg}, {rows} rows a batch, N={N_ENTITIES} R={N_RELATIONS} k={K}: "
+              f"wrapper {ms:.4f} ms a batch (three launches, one ctypes call; CUDA events over {reps} epochs of "
+              f"{N_BATCHES} batches), device {device_ms:.4f} ms a batch ("
+              + ", ".join(f"{name} {v:.4f}" for name, v in by_kernel.items())
+              + f"), plain fused_table_update {plain_ms:.4f} ms a batch, library none, bound {b_ms:.5f} ms "
+              f"({b_by}, update_work): device {device_ms / b_ms:.1f} times the bound", flush=True)
+        records.append({
+            "name": f"transe_fast L1 K={k_neg}",
+            "route": "cuda",
+            "source": "kb2e_tpu_torch/csrc/transe_fast.cu",
+            "replaces": None,
+            "launches": results["fast_launches"],
+            "max_abs_err": ctx["fast_worst"],
+            "ms": ms,
+            "device_ms": device_ms,
+            "device_ms_by_kernel": by_kernel,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    return records
+
+
 def bare_launcher(args):
     """The rank count's bare launch on buffers allocated once: the tables in
     the harness's aligned layout, ``e_sq`` and ``q_sq`` given, and ``out``
@@ -3093,6 +3282,8 @@ def timing_phase(tables, ctx, results):
     took("the rank-count timing")
     records += update_timing(ctx, results)
     took("the TransE update timing")
+    records += transe_fast_timing(ctx, results)
+    took("the TransE fast-batch timing")
     fast = results["fast"]
     print(f"[timing] train_transe fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast), flush=True)

@@ -67,7 +67,8 @@ class Model(abc.ABC):
     # PTransE): their parity mode is the vectorised update.
     has_parity_mode: bool = True
     # True if the fast epoch can run over one fused [N+R, k] table
-    # (``fuse_params`` / ``fused_table_update`` / ``unfuse_params``).
+    # (``fuse_params`` / ``fused_table_update`` / ``unfuse_params``, and on
+    # one card ``fused_table_kernel``, the update's hand-written kernels).
     supports_fused_table: bool = False
     # The fast update's chunk for chunk-sequential models (TransR): the
     # epoch runner feeds them the epoch in chunks of this many samples.
@@ -154,6 +155,11 @@ class Model(abc.ABC):
     def warm_start_params(self, params: Params, seed_entity, seed_relation) -> Params:
         """``params`` with the TransE seed tables loaded (``has_warm_start`` models)."""
         raise NotImplementedError(f"model {self.name} has no warm start")
+
+    def takes_fused_table_kernel(self, k: int, rows: int) -> bool:
+        """Whether ``fused_table_kernel`` (TransE's alone) takes a fused table
+        of width ``k`` and batches of ``rows`` rows."""
+        return False
 
     def chunk_counts(self, params: Params) -> torch.Tensor:
         """A zeroed count buffer for ``chunk_update_`` (models with ``chunk_counters``)."""

@@ -24,7 +24,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import base
-from kb2e_tpu_torch.ops import distances, projections, scatter, transe_update
+from kb2e_tpu_torch.ops import distances, projections, scatter, transe_fast, transe_update
 from kb2e_tpu_torch.utils import prng
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -116,6 +116,24 @@ class TransE(base.Model):
         delta = torch.cat([lr * x_pos, -lr * x_pos, -lr * x_neg, lr * x_neg, lr * (x_pos - x_neg)])
         table = scatter.scatter_add(table, idx, delta.to(table.dtype), cfg.scatter_mode)
         return projections.ball_norm(table), loss
+
+    def fused_table_kernel(
+        self, table: torch.Tensor, n_entities: int, batches: base.Batch, cfg: EmbeddingConfig
+    ) -> transe_fast.FusedBatches:
+        """``fused_table_update`` of each of ``batches``' [n, rows] batches,
+        in place on the float32 ``table``, by the three launches a batch of
+        ``ops/transe_fast.py`` on a card (by ``fused_table_update`` itself on
+        the CPU): call the result with each batch's index in order, then read
+        its ``loss`` [n]."""
+        return transe_fast.FusedBatches(
+            table, n_entities, batches, learning_rate=cfg.learning_rate, margin=cfg.margin,
+            l1=self.effective_distance(Distance.from_any(cfg.distance)) == Distance.L1,
+            plain=lambda t, batch: self.fused_table_update(t, n_entities, batch, cfg),
+            group=max(1, cfg.num_negatives),
+        )
+
+    def takes_fused_table_kernel(self, k: int, rows: int) -> bool:
+        return transe_fast.takes(k, rows)
 
     def sequential_update(self, params, batch: base.Batch, cfg: EmbeddingConfig) -> Tuple[base.Params, torch.Tensor]:
         """The reference's per-sample update of one batch, in float32.

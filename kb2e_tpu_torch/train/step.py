@@ -171,7 +171,12 @@ class EpochRunner:
     and gathers its paths) and then applies them with :meth:`apply`, which tests can also
     feed injected batches.  With ``fused`` (the default for models that
     support it) the batches update one [N+R, k] table
-    (``Model.fused_table_update``).  A model with a ``chunk_size`` (TransR, CTransR)
+    (``Model.fused_table_update``); with float32 tables on one CUDA device
+    and direct scatters, at a width and batch the kernels take
+    (:meth:`takes_batch_kernel`), they go through the
+    model's hand-written kernels instead (``Model.fused_table_kernel``:
+    TransE's ``ops/transe_fast.py``, three launches a batch, in place on the
+    fused table that :meth:`apply` owns).  A model with a ``chunk_size`` (TransR, CTransR)
     gets the epoch as mini-batches of ``min(chunk_size, rows)`` instead of
     ``num_batches`` batches: batch boundaries carry no meaning for its
     chunk-sequential update, so the epoch's samples are padded with invalid
@@ -238,7 +243,16 @@ class EpochRunner:
                 return graph.apply(params, batches)
             losses = []
             if self.fused:
+                kernel = self.takes_batch_kernel(params, batches["ph"].shape[1])
+                profiling.count("train.batches", n_batches)
+                profiling.count("train.batches_kernel", n_batches if kernel else 0)
                 table = self.model.fuse_params(params)
+                if kernel:
+                    run = self.model.fused_table_kernel(table, n_entities, batches, self.cfg)
+                    for i in range(n_batches):
+                        with profiling.span("kb2e.train.batch"):
+                            run(i)
+                    return self.model.unfuse_params(table, n_entities), run.loss.sum()
                 for i in range(n_batches):
                     with profiling.span("kb2e.train.batch"):
                         table, loss = self.model.fused_table_update(
@@ -253,6 +267,17 @@ class EpochRunner:
                                                                self.cfg)
                     losses.append(loss)
             return params, torch.stack(losses).sum()
+
+    def takes_batch_kernel(self, params: Params, rows: int) -> bool:
+        """Whether :meth:`apply`'s fused loop runs the model's hand-written
+        batch kernels (``Model.fused_table_kernel``) on ``params`` and
+        batches of ``rows`` rows: float32 tables on one CUDA device, direct
+        scatters (a fused runner has no mesh), and a width and batch the
+        kernels take (``Model.takes_fused_table_kernel``)."""
+        ent, rel = params["entity"], params["relation"]
+        return (self.fused and self.cfg.scatter_mode == "direct" and ent.device.type == "cuda"
+                and rel.device == ent.device and ent.dtype == rel.dtype == torch.float32
+                and self.model.takes_fused_table_kernel(ent.shape[1], rows))
 
     def _chunk_graph(self, params: Params, batches: Batch) -> Optional[ChunkGraph]:
         """The chunk's CUDA graph where :meth:`apply` can replay one, or None."""

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5); and TransR's and
+TransH update (K4) and the sequential TransR update (K5); TransR's and
 CTransR's fast chunks replayed as a CUDA graph by the epoch runner against
-the same chunks run eagerly.  K3, K4 and K5 run
+the same chunks run eagerly; and TransE's fast batch as two kernels
+(``ops/transe_fast.py``) against ``fused_table_update`` run eagerly.  K3, K4 and K5 run
 samples that share no row side by side; batches built to stress that
 schedule (a chain of the whole batch, no shared row at all, fewer samples
 than resident blocks, no update at all) hold them bit-equal to their plain
@@ -888,3 +889,249 @@ def test_ctransr_chunk_graph_is_captured_once_counts_its_routes_and_replays_ever
     again, _ = runner.apply(params, first, n)
     assert runner._graph is not graph and runner._graph.counts is None
     assert torch.equal(again["entity"], one["entity"])
+
+
+# --- TransE's fast batch, three launches a batch (ops/transe_fast.py) ---------------------
+#
+# The kernels sum each row in torch's order (k < 128) and add every delta
+# into the accumulator on its own, role by role as the plain update's
+# index_add does.  A row's deltas round alike in any order unless its running
+# sum crosses a power of two, so where sums are exact (dyadic tables) the two
+# agree bit for bit; elsewhere they part as index_add parts from itself run to
+# run, a unit in the last place in a few elements.  So random tables are
+# compared one batch at a time from one state: over many batches one rounding
+# apart flips an L1 direction wherever a residual coordinate is within it of
+# 0, a step of 2 lr.
+
+
+def _fast_case(dev, distance, k_neg, k, n_batches, seed, dyadic=True, ordered=True, n=2000, n_rel=60, positives=512,
+               distinct=False):
+    """A TransE runner on one card, its tables and a [n_batches, positives·K]
+    feed.  ``dyadic``: entries multiples of 1/16 in [-1/2, 1/2] (most rows of
+    norm above 1) and lr 1/16, so every sum of one batch is exact in any
+    order; else tables of norm at most 1 and lr 2^-10.  ``ordered``: the
+    positives repeated sample-major, as the sampler lays out K negatives;
+    else every row drawn at random.  ``distinct`` (K 1): no row of a batch
+    shares an entity or a relation with another, so no two deltas meet."""
+    rng = np.random.default_rng(seed)
+    cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16 if dyadic else 2**-10, margin=1.0,
+                          distance=int(distance), num_negatives=k_neg)
+    if dyadic:
+        ent, rel = (np.clip(np.round(rng.normal(size=(m, k)) * 3) / 16, -0.5, 0.5) for m in (n, n_rel))
+    else:
+        ent, rel = (rng.normal(size=(m, k)) / np.sqrt(k) for m in (n, n_rel))
+        ent, rel = (x / np.maximum(1.0, np.linalg.norm(x, axis=1, keepdims=True)) for x in (ent, rel))
+    params = {"entity": torch.from_numpy(ent.astype(np.float32)).to(dev),
+              "relation": torch.from_numpy(rel.astype(np.float32)).to(dev)}
+    rows = positives * k_neg
+    rep = k_neg if ordered else 1
+    ph, pt, r = (np.repeat(rng.integers(0, m, (n_batches, rows // rep)), rep, axis=1) for m in (n, n, n_rel))
+    pt[:, :rows // 8] = ph[:, :rows // 8]  # h == t
+    nh, nt = rng.integers(0, n, (2, n_batches, rows))
+    if distinct:
+        ph, pt, nh, nt = np.stack([rng.permutation(n)[:4 * rows].reshape(4, rows) for _ in range(n_batches)], 1)
+        r = np.stack([rng.permutation(n_rel)[:rows] for _ in range(n_batches)])
+    valid = rng.random((n_batches, rows)) > 0.1
+    feed = {key: torch.from_numpy(v.astype(np.int32)).to(dev) for key, v in zip(("ph", "pt", "r", "nh", "nt"),
+                                                                              (ph, pt, r, nh, nt))}
+    feed["valid"] = torch.from_numpy(valid).to(dev)
+    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, positives, n_batches)
+    return runner, cfg, params, feed, n
+
+
+def _fast_plain(params, feed, cfg, n):
+    """``fused_table_update`` over the feed's batches in turn (eager, on the tables' device)."""
+    model = get_model("transe")
+    table, losses = model.fuse_params(params), []
+    for i in range(feed["ph"].shape[0]):
+        table, loss = model.fused_table_update(table, n, {key: v[i] for key, v in feed.items()}, cfg)
+        losses.append(loss)
+    return model.unfuse_params(table, n), torch.stack(losses).sum()
+
+
+def _one_call_each(runner, params, feed, n):
+    """The feed's batches through the runner one ``apply`` call each: the states after each, and the losses."""
+    states, losses = [], []
+    for i in range(feed["ph"].shape[0]):
+        params, loss = runner.apply(params, {key: v[i:i + 1] for key, v in feed.items()}, n)
+        states.append(params)
+        losses.append(loss)
+    return states, torch.stack(losses)
+
+
+def _fast_launches():
+    from kb2e_tpu_torch.ops import transe_fast
+
+    return sum(transe_fast.launch_counts.values())
+
+
+@pytest.mark.parametrize("distance, k_neg, k, ordered", [
+    (Distance.L1, 1, 100, True), (Distance.L2, 1, 100, True), (Distance.L1, 8, 100, True),
+    (Distance.L2, 8, 100, True), (Distance.L1, 8, 100, False), (Distance.L2, 1, 30, True),
+    (Distance.L1, 8, 30, True), (Distance.L1, 1, 300, True), (Distance.L2, 8, 257, True),
+])
+def test_transe_batch_kernels_equal_the_plain_update_bit_for_bit_on_dyadic_tables(cuda, distance, k_neg, k, ordered):
+    # One batch: every sum exact, so the atomics' order cannot matter.  k 30
+    # and 257 take the scalar loads (k not a multiple of 4), 257 and 300 more
+    # than one chunk a lane; K 8 unordered: no two rows share a positive.
+    runner, cfg, params, feed, n = _fast_case(cuda, distance, k_neg, k, 1, seed=k + k_neg, ordered=ordered)
+    before = {key: v.clone() for key, v in params.items()}
+    launches = _fast_launches()
+    got, loss = runner.apply(params, feed, n)
+    torch.cuda.synchronize()
+    assert _fast_launches() == launches + 3
+    want, want_loss = _fast_plain(params, feed, cfg, n)
+    for key in params:
+        assert torch.equal(got[key], want[key]), key
+        assert torch.equal(params[key], before[key]), key
+    assert torch.equal(loss, want_loss) and float(loss) > 0
+
+
+@pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
+@pytest.mark.parametrize("k_neg", [1, 8])
+def test_transe_batch_kernels_near_the_plain_update_on_random_tables(cuda, distance, k_neg):
+    # Five batches at k 100, each from the state the kernels left, against
+    # the plain update from that state, run twice: within a unit in the last
+    # place (1e-7 for rows of norm at most 1; L2 1e-6), and in no more
+    # elements than four times those in which the plain update parts from
+    # itself, or a thousandth of them.  The loss, summed in another order over
+    # about a thousand terms, within 1e-5; the five batches in one call within
+    # 1e-6 of them one call each.
+    runner, cfg, params, feed, n = _fast_case(cuda, distance, k_neg, 100, 5, seed=40 + k_neg, dyadic=False,
+                                              n=3000, n_rel=200, positives=1024)
+    states, losses = _one_call_each(runner, params, feed, n)
+    for i, (start, state) in enumerate(zip([params] + states, states)):
+        one = {key: v[i:i + 1] for key, v in feed.items()}
+        want, want_loss = _fast_plain(start, one, cfg, n)
+        again, _ = _fast_plain(start, one, cfg, n)
+        for key in params:
+            torch.testing.assert_close(state[key], want[key], rtol=0, atol=1e-7 if distance == Distance.L1 else 1e-6)
+            apart, itself = int((state[key] != want[key]).sum()), int((again[key] != want[key]).sum())
+            assert apart <= 4 * itself + want[key].numel() // 1000, (key, apart, itself)
+        assert float(losses[i]) == pytest.approx(float(want_loss), rel=1e-5) and float(want_loss) > 0
+    got, loss = runner.apply(params, feed, n)
+    for key in params:
+        torch.testing.assert_close(got[key], states[-1][key], rtol=0, atol=1e-6)
+    assert float(loss) == pytest.approx(float(losses.sum()), rel=1e-5)
+
+
+def test_transe_one_and_hundred_batch_applies_take_the_kernels_three_launches_a_batch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    runner, cfg, params, feed, n = _fast_case(cuda, Distance.L1, 1, 100, 100, seed=7, dyadic=False)
+    launches = _fast_launches()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            one, _ = runner.apply(params, {key: v[:1] for key, v in feed.items()}, n)  # a start check's call
+            out, loss = runner.apply(one, feed, n)
+        snap = profiling.snapshot()
+    finally:
+        profiling.reset()
+    assert _fast_launches() == launches + 3 * 101
+    assert snap["counters"]["train.batches"] == snap["counters"]["train.batches_kernel"] == 101
+    assert snap["spans"]["kb2e.train.batch"]["count"] == 101
+    for key in params:
+        assert not torch.equal(out[key], one[key]) and bool(torch.isfinite(out[key]).all()), key
+        assert bool((out[key].norm(dim=1) <= 1 + 1e-6).all()), key
+    assert float(loss) > 0
+
+
+@pytest.mark.parametrize("dtype, scatter_mode", [(torch.bfloat16, "direct"), (torch.float32, "dedup")])
+def test_transe_bf16_and_dedup_stay_eager_on_the_card(cuda, dtype, scatter_mode):
+    from torch.profiler import ProfilerActivity, profile
+
+    # Rows that no two samples of a batch share: the eager update adds no
+    # two deltas into one row, so it rounds alike every time it runs.
+    _, cfg, params, feed, n = _fast_case(cuda, Distance.L2, 1, 100, 3, seed=9, n_rel=300, positives=256,
+                                         distinct=True)
+    cfg = cfg.replace(scatter_mode=scatter_mode)
+    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, feed["ph"].shape[1], 3)
+    params = {key: v.to(dtype) for key, v in params.items()}
+    launches = _fast_launches()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got, loss = runner.apply(params, feed, n)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert _fast_launches() == launches
+    assert counters["train.batches"] == 3 and counters["train.batches_kernel"] == 0
+    want, want_loss = _fast_plain(params, feed, cfg, n)
+    for key in params:
+        assert got[key].dtype == dtype and torch.equal(got[key], want[key]), key
+    assert torch.equal(loss, want_loss) and float(loss) > 0
+
+
+def test_transe_batch_kernels_ball_norm_untouched_rows_above_norm_one_as_the_plain_update(cuda):
+    runner, cfg, params, feed, n = _fast_case(cuda, Distance.L1, 1, 100, 1, seed=11)
+    params["entity"][n - 50:] = 0.25  # norm 2.5, and no sample below touches them
+    for key in ("ph", "pt", "nh", "nt"):
+        feed[key] %= n - 50
+    got, _ = runner.apply(params, feed, n)
+    want, _ = _fast_plain(params, feed, cfg, n)
+    assert torch.allclose(got["entity"][n - 50:].norm(dim=1), torch.ones(50, device=cuda))
+    for key in params:
+        assert torch.equal(got[key], want[key]), key
+
+
+GAP_SEEDS = 32  # table and sampler seeds a cell, on one graph
+
+
+@pytest.mark.parametrize("cell", ["transe-fb15k.train", "transe-fb15k.train-k8"])
+def test_transe_batch_kernels_hold_the_benchmark_gaps_over_many_seeds(cuda, cell):
+    # The benchmark's check (portbench/checks.py) at its cells' shapes, the
+    # sampler's judge left out: from the benchmark's init tables the first
+    # epoch's first check_steps batches one apply call each, then the
+    # epoch's whole feed with all but those batches masked out in one call,
+    # each followed by the plain reference.  The cell's limits on the loss
+    # and change gaps hold at every seed; the change limits lie under what
+    # one L1 direction flipped by one rounding reads, so an update whose
+    # rounding parts from the reference's index_add more often than the
+    # eager one fails here.
+    from portbench import cell as cell_lib
+    from portbench import checks, spec
+    from portbench.data import graph as graph_lib
+
+    from kb2e_tpu_torch.data.triples import TripleSet
+
+    c = spec.load(cell)
+    ref, g, limits = c.model, c.config["graph"], c.limits["limits"]
+    n_ent, n_rel = int(g["n_entities"]), int(g["n_relations"])
+    graph = graph_lib.generate(g, 2147493101)
+    data = step_lib.DeviceData.from_triple_set(TripleSet.from_arrays(*graph["train"], n_ent, n_rel), cuda)
+    steps, worst = int(c.traffic["check_steps"]), {}
+    for seed in range(2147493201, 2147493201 + GAP_SEEDS):
+        cfg = cell_lib._config(c, seed, None)
+        runner = step_lib.EpochRunner(get_model("transe"), cfg, step_lib.batch_size_for(graph["train"][0].shape[0],
+                                                                                        cfg.num_batches),
+                                      cfg.num_batches)
+        lr, margin, l1 = cfg.learning_rate, cfg.margin, int(cfg.distance) == 0
+        start = ref.init_tables(torch.Generator(cuda).manual_seed(cell_lib._seed(seed, 0)), n_ent, n_rel,
+                                cfg.embedding_size, "train")
+        epoch = runner.sample(torch.Generator(cuda).manual_seed(cell_lib._seed(seed, 1)), data)
+        params, ref_tables, states, ref_states, numbers = dict(start), start, [], [], {"loss_gap": 0.0}
+        for i in range(steps):
+            one = {key: v[i:i + 1] for key, v in epoch.items()}
+            params, loss = runner.apply(params, one, n_ent)
+            ref_tables, ref_loss = ref.fast_epoch(ref_tables, one, lr, margin, l1)
+            states.append(params)
+            ref_states.append(ref_tables)
+            numbers["loss_gap"] = max(numbers["loss_gap"], abs(float(loss) - ref_loss) / abs(ref_loss))
+        counted = checks.moving_leaves(ref.LEAVES, start, ref_states[0])
+        numbers["change1_gap"] = checks.change_gap(ref.LEAVES, start, states[0], start, ref_states[0], counted)
+        numbers["change3_gap"] = checks.change_gap(ref.LEAVES, start, states[-1], start, ref_states[-1], counted)
+        masked = {**epoch, "valid": epoch["valid"].clone()}
+        masked["valid"][steps:] = False
+        end, loss = runner.apply(params, masked, n_ent)
+        ref_end, ref_loss = ref.fast_epoch(params, masked, lr, margin, l1)
+        counted = checks.moving_leaves(ref.LEAVES, params, ref_end)
+        numbers["window_loss_gap"] = abs(float(loss) - ref_loss) / abs(ref_loss)
+        numbers["window_change_gap"] = checks.change_gap(ref.LEAVES, params, end, params, ref_end, counted)
+        for name, value in numbers.items():
+            worst[name] = max(worst.get(name, (0.0, 0)), (value, seed))
+    print(f"{cell}: worst of {GAP_SEEDS} seeds " + ", ".join(f"{name} {v:.3g} (seed {s}, limit {limits[name]})"
+                                                            for name, (v, s) in worst.items()))
+    for name, (value, seed) in worst.items():
+        assert value <= limits[name], (name, value, seed, limits[name])
