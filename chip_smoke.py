@@ -316,11 +316,6 @@ MECHANISM_SEEDS = (11, 12, 13, 14)
 # Checks of relation evidence on the card against the CPU: the first batches.
 N_RELATION_CHECK_BATCHES = 8
 
-# Peak rates of an H100 SXM at its full 700 W (NVIDIA data sheet): fp32 outside
-# the tensor cores counts an FMA as two operations, and device memory.
-FP32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-
 
 def phase(name: str, fn, *args):
     t0 = time.perf_counter()
@@ -397,15 +392,15 @@ def build_phase():
 
 
 def reset_all_launch_counts():
-    for module in kernel_modules():
-        module.reset_launch_counts()
+    from kb2e_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
-    counts = {}
-    for module in kernel_modules():
-        counts.update(module.launch_counts)
-    return counts
+    from kb2e_tpu_torch.ops import cuda_build
+
+    return dict(cuda_build.launch_counts)
 
 
 def dyadic(rng, shape):
@@ -610,13 +605,13 @@ def fast_epoch_feed(data, k_neg: int):
 
     cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=1, num_batches=N_BATCHES,
                           num_negatives=k_neg)
-    runner = step.make_epoch_runner(get_model("transe"), cfg, TRAIN_BATCH, N_BATCHES)
+    runner = step.EpochRunner(get_model("transe"), cfg, TRAIN_BATCH, N_BATCHES)
     return cfg, runner.sample(torch.Generator(device="cuda").manual_seed(SEED + k_neg), data)
 
 
 def transe_fast_kernel_checks(tables, data):
-    """TransE's fast batch through its wrapper (``TransE.fused_table_kernel``,
-    ``ops/transe_fast.py``) against ``TransE.fused_table_update`` on the card,
+    """TransE's fast batch through its wrapper (``ops/transe_fast.py``, as
+    ``TransE.stepper`` makes it for float32 tables on the card) against ``TransE.fused_table_update`` on the card,
     on the first batch of a sampler epoch at each of FAST_NEGATIVES (B 4,831
     and 38,648 rows), L1 and L2, from one start each: bit for bit on dyadic
     tables (multiples of 1/16 in [-1/2, 1/2], most rows of norm above 1, lr
@@ -629,6 +624,7 @@ def transe_fast_kernel_checks(tables, data):
     largest table difference and the epochs for the timing phase."""
     from kb2e_tpu_torch import get_model
     from kb2e_tpu_torch.constants import Distance
+    from kb2e_tpu_torch.models import base
     from kb2e_tpu_torch.ops import transe_fast
 
     model, feeds, cfgs, worst = get_model("transe"), {}, {}, 0.0
@@ -645,13 +641,14 @@ def transe_fast_kernel_checks(tables, data):
         for distance in (Distance.L1, Distance.L2):
             for what, (snapshot, lr) in snapshots.items():
                 c = cfg.replace(distance=distance, learning_rate=lr)
-                start = model.fuse_params(dict(zip(("entity", "relation"), snapshot)))
-                table = start.clone()
-                run = model.fused_table_kernel(table, N_ENTITIES, first, c)
+                params = dict(zip(("entity", "relation"), snapshot))
+                start = base.fuse(params)
+                run = model.stepper(params, first, c)
                 reset_all_launch_counts()
                 run(0)
                 torch.cuda.synchronize()
                 launches = all_launch_counts()
+                table = base.fuse(run.params())
                 what_ = f"transe_fast {distance.name} K={k_neg} ({first['ph'].shape[1]} rows) on {what} tables"
                 check(launches == one_each, f"{what_}: launches {launches}, expected {one_each}")
                 want, want_loss = model.fused_table_update(start, N_ENTITIES, batch, c)
@@ -1978,6 +1975,17 @@ def with_dist_paths(data, work: str, dev):
                                path_conf=torch.from_numpy(store["conf"]).to(dev))
 
 
+def batch_by_batch(model, params, batches, cfg):
+    """``model.batch_update`` over [n, rows] batches (or chunks) in turn, as
+    one rank: what the distributed step's ``batch_update`` calls are held to.
+    Returns (params, the summed loss)."""
+    losses = []
+    for i in range(next(iter(batches.values())).shape[0]):
+        params, loss = model.batch_update(params, {k: v[i] for k, v in batches.items()}, cfg)
+        losses.append(loss)
+    return params, torch.stack(losses).sum()
+
+
 def dist_inputs(model_name: str, shape, data, dev):
     """Part (b)'s inputs of a DP_RUNS run, the same in every process:
     bench.py's configuration with the batch rounded down to the data axis,
@@ -1989,7 +1997,7 @@ def dist_inputs(model_name: str, shape, data, dev):
     batch = TRAIN_BATCH - TRAIN_BATCH % shape[0]
     model = get_model(model_name)
     params = model.init_params(torch.Generator(device=dev).manual_seed(SEED), N_ENTITIES, N_RELATIONS, cfg, dev)
-    runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
+    runner = step.EpochRunner(model, cfg, batch, N_BATCHES)
     return model, cfg, batch, params, runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
 
 
@@ -2021,7 +2029,7 @@ def cut_inputs(model_name: str, work: str, data, dev):
 
     model = get_model(model_name)
     params = {k: torch.from_numpy(v).to(dev) for k, v in np.load(os.path.join(work, f"dist_{model_name}.npz")).items()}
-    runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, fused=False)
+    runner = step.EpochRunner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES)
     chunks = runner.sample(torch.Generator(device=dev).manual_seed(SEED + 1), data)
     return model, params, {k: v[:CUT_CHUNKS] for k, v in chunks.items()}
 
@@ -2100,7 +2108,7 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
             mesh = mesh_lib.make_mesh(*shape, device=dev)
             model, cfg, batch, params, batches = dist_inputs(model_name, shape,
                                                              path_data if model_name == "ptranse" else data, dev)
-            runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, mesh=mesh)
+            runner = step.EpochRunner(model, cfg, batch, N_BATCHES, mesh=mesh)
             params = sharding.place_params(mesh, params)
             walls = []
             for sl in (slice(0, 1), slice(1, 1 + rest)):
@@ -2117,7 +2125,7 @@ def dist_rank(part: str, rank: int, port: int, work: str) -> None:
         mesh = mesh_lib.make_mesh(1, DIST_WORLD, device=dev)
         for model_name in CUT_MODELS:
             model, params, chunks = cut_inputs(model_name, work, data, dev)
-            runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, mesh=mesh)
+            runner = step.EpochRunner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, mesh=mesh)
             params = sharding.place_params(mesh, params)
             walls = []
             for sl in (slice(0, 1), slice(1, None)):
@@ -2260,21 +2268,19 @@ def cut_diff(tables: dict, whole: dict, cut: dict) -> float:
 
 
 def dp_training(data, path_data, ranks, card: str):
-    """Part (b)'s DP_RUNS against the one-rank runner on the same inputs:
-    after the first batch each rank's tables within DIST_ATOL and the loss
-    within DIST_LOSS_RTOL; after the rest the largest difference printed."""
-    from kb2e_tpu_torch.train import step
-
+    """Part (b)'s DP_RUNS against one rank's ``batch_update`` batch by batch
+    on the same inputs: after the first batch each rank's tables within
+    DIST_ATOL and the loss within DIST_LOSS_RTOL; after the rest the largest
+    difference printed."""
     for model_name, shape, rest in DP_RUNS:
         model, cfg, batch, params, batches = dist_inputs(model_name, shape,
                                                          path_data if model_name == "ptranse" else data,
                                                          torch.device("cuda"))
-        runner = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)
         want, one_walls = {}, []
         for sl in (slice(0, 1), slice(1, 1 + rest)):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            params, loss = runner.apply(params, {k: v[sl] for k, v in batches.items()}, N_ENTITIES)
+            params, loss = batch_by_batch(model, params, {k: v[sl] for k, v in batches.items()}, cfg)
             want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
             one_walls.append(time.perf_counter() - t1)
         kind = "data-parallel" if shape[1] == 1 else "entity rows cut"
@@ -2295,20 +2301,17 @@ def dp_training(data, path_data, ranks, card: str):
 
 
 def cut_training(work: str, ts, data, ranks, card: str):
-    """Part (b)'s TransR and CTransR at mesh (1, 2) against the one-rank
-    runner: after the first chunk each rank's cut of every table within
-    DIST_ATOL and the loss within DIST_LOSS_RTOL; after CUT_CHUNKS the
-    largest difference printed."""
-    from kb2e_tpu_torch.train import step
-
+    """Part (b)'s TransR and CTransR at mesh (1, 2) against one rank's
+    ``batch_update`` chunk by chunk: after the first chunk each rank's cut
+    of every table within DIST_ATOL and the loss within DIST_LOSS_RTOL;
+    after CUT_CHUNKS the largest difference printed."""
     for model_name in CUT_MODELS:
         model, params, chunks = cut_inputs(model_name, work, data, torch.device("cuda"))
-        runner = step.make_epoch_runner(model, dist_cfg(), TRAIN_BATCH, N_BATCHES, fused=False)
         want, one_walls = {}, []
         for sl in (slice(0, 1), slice(1, None)):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            params, loss = runner.apply(params, {k: v[sl] for k, v in chunks.items()}, N_ENTITIES)
+            params, loss = batch_by_batch(model, params, {k: v[sl] for k, v in chunks.items()}, dist_cfg())
             want[sl.start] = ({k: v.cpu().numpy() for k, v in params.items()}, float(loss))
             one_walls.append(time.perf_counter() - t1)
         for r, got in enumerate(ranks):
@@ -2431,7 +2434,7 @@ def nccl_cards_phase(work: str):
         batch = TRAIN_BATCH - TRAIN_BATCH % data_axis
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         params = model.init_params(gen, N_ENTITIES, N_RELATIONS, cfg, torch.device("cuda"))
-        want, _ = step.make_epoch_runner(model, cfg, batch, N_BATCHES, fused=False)(params, gen, data)
+        want, _ = batch_by_batch(model, params, step.EpochRunner(model, cfg, batch, N_BATCHES).sample(gen, data), cfg)
         want = {k: v.cpu().numpy() for k, v in want.items()}
         out = os.path.join(work, f"nccl_{data_axis}x{model_axis}")
         t0 = time.perf_counter()
@@ -2495,17 +2498,14 @@ def library_call(proj_t, queries_t, e_true, true_idx, distance):
     return torch.sum(rank_count.beats(en, idx, e_true, true_idx), dim=1, dtype=torch.int32)
 
 
-def bound_ms(distance, k, n, b) -> tuple:
-    """Least time on the card: operations at the fp32 peak, or bytes at the
-    memory rate (each input read once, the output written once)."""
-    from kb2e_tpu_torch.constants import Distance
+def least_ms(ops, nbytes) -> tuple:
+    """(ms, what bounds it): the least time of ``ops`` fp32 operations and
+    ``nbytes`` bytes on the card (``portbench/roofline.py``, an H100 SXM's
+    peaks at its full 700 W), and whether the operations or the bytes set it."""
+    from portbench import roofline
 
-    # L1: a subtract and an absolute-add per element, two fp32 instructions,
-    # each as costly as an FMA (two operations); L2: one FMA per element.
-    ops = (4 if distance == Distance.L1 else 2) * b * n * k
-    nbytes = 4 * (k * n + k * b + b + b) + 4 * b
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    by = "operations" if ops / roofline.FP32_FLOPS >= nbytes / roofline.HBM_BYTES_PER_S else "bytes"
+    return 1e3 * roofline.least_seconds(ops, nbytes), by
 
 
 def update_bound_ms(n, n_rel, k, b, n_updates) -> tuple:
@@ -2516,8 +2516,7 @@ def update_bound_ms(n, n_rel, k, b, n_updates) -> tuple:
     adds, squares, norm sums and divisions)."""
     nbytes = 2 * 4 * (n + n_rel) * k + b * (5 * 4 + 1) + 4 * b + 4
     ops = 6 * k * b + 24 * k * n_updates
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return least_ms(ops, nbytes)
 
 
 def transh_bound_ms(n, n_rel, k, b, n_updates, fired, capped) -> tuple:
@@ -2535,8 +2534,7 @@ def transh_bound_ms(n, n_rel, k, b, n_updates, fired, capped) -> tuple:
     nbytes = 2 * 4 * (n + 2 * n_rel) * k + b * (5 * 4 + 1) + 3 * 4 * b + 4
     tests = fired + 6 * n_updates - capped
     ops = 2 * k * (32 * b + (46 + 36) * n_updates + 5 * tests + 4 * fired)
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return least_ms(ops, nbytes)
 
 
 def device_busy_ms(fn, what: str, top: int = 5) -> float:
@@ -2657,8 +2655,7 @@ def transr_bound_ms(n, n_rel, k, b, n_updates, fired, capped) -> tuple:
     tests = fired + 6 * n_updates - capped
     ops = 2 * (b * (8 * k * k + 8 * k) + n_updates * (16 * k * k + 40 * k) + tests * (2 * k * k + 2 * k)
                + fired * 6 * k * k)
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return least_ms(ops, nbytes)
 
 
 def transr_timing(ctx, results):
@@ -2738,7 +2735,7 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
     model = get_model(model_name)
     cfg = EmbeddingConfig(embedding_size=K, learning_rate=0.001, margin=1.0, method=1, num_batches=N_BATCHES)
     gen = torch.Generator(device=data.heads.device).manual_seed(SEED)
-    runner = step.make_epoch_runner(model, cfg, TRAIN_BATCH, N_BATCHES)
+    runner = step.EpochRunner(model, cfg, TRAIN_BATCH, N_BATCHES)
 
     def timed(fn, reps=1):
         """fn's last result and its median time over ``reps`` runs, on the
@@ -2802,8 +2799,8 @@ def epoch_breakdown(ctx, model_name: str, params: dict, fast_reps: int = 5, pari
           f"({fast_host_ms:.3f} ms on the host's; medians of {fast_reps}), device busy {fast_busy:.3f} ms over "
           f"{busy_of}, idle share {idle(fast_busy, window_ms)}; alone (medians of {fast_reps}): sampling the epoch "
           f"{sample_ms:.3f} ms, "
-          f"{next(iter(batches.values())).shape[0]} {'fused ' if runner.fused else ''}"
-          f"{'chunk ' if runner.chunk else ''}updates {apply_ms:.3f} ms", flush=True)
+          f"{next(iter(batches.values())).shape[0]} {'chunk ' if runner.chunk else ''}updates {apply_ms:.3f} ms",
+          flush=True)
     if parity:
         print(f"[timing] {model_name} parity epoch: {parity_ms:.3f} ms on the card's clock ({parity_host_ms:.3f} ms "
               f"on the host's; medians of {parity_reps}), device busy {parity_busy:.3f} ms, idle share "
@@ -2867,14 +2864,17 @@ def transe_fast_timing(ctx, results):
     from torch.profiler import ProfilerActivity, profile
 
     from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.models import base
     from kb2e_tpu_torch.ops import transe_fast
+    from portbench import roofline
     from portbench.reference import transe as ref_transe
 
     model, records, reps = get_model("transe"), [], 5
-    start = model.fuse_params({"entity": ctx["update_args"][0], "relation": ctx["update_args"][1]})
+    params = {"entity": ctx["update_args"][0], "relation": ctx["update_args"][1]}
+    start = base.fuse(params)
     for k_neg, feed in ctx["fast_feeds"].items():
         cfg, rows = ctx["fast_cfgs"][k_neg], feed["ph"].shape[1]
-        run = model.fused_table_kernel(start.clone(), N_ENTITIES, feed, cfg)
+        run = model.stepper(params, feed, cfg)
 
         def epoch():
             for i in range(N_BATCHES):
@@ -2905,9 +2905,9 @@ def transe_fast_timing(ctx, results):
 
         plain_ms = time_ms(plain_epoch, 3, warmup=1) / N_BATCHES
         work = ref_transe.update_work(K, feed)
-        b_ms = 1e3 * sum(max(ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) for ops, nbytes in work) / N_BATCHES
-        b_by = "bytes" if sum(nb / HBM_BYTES_PER_S for _, nb in work) >= sum(op / FP32_FLOPS for op, _ in work) \
-            else "operations"
+        b_ms = 1e3 * roofline.least_seconds_sum(work) / N_BATCHES
+        b_by = "bytes" if sum(nb / roofline.HBM_BYTES_PER_S for _, nb in work) >= sum(
+            op / roofline.FP32_FLOPS for op, _ in work) else "operations"
         print(f"[timing] transe_fast L1 K={k_neg}, {rows} rows a batch, N={N_ENTITIES} R={N_RELATIONS} k={K}: "
               f"wrapper {ms:.4f} ms a batch (three launches, one ctypes call; CUDA events over {reps} epochs of "
               f"{N_BATCHES} batches), device {device_ms:.4f} ms a batch ("
@@ -3038,6 +3038,7 @@ def rank_count_timing(tables, ctx, results):
     time by k."""
     from kb2e_tpu_torch.constants import Distance
     from kb2e_tpu_torch.ops import distances, rank_count
+    from portbench import roofline
 
     worst = ctx["rank_worst"]
     rng = np.random.default_rng(SEED + 1)
@@ -3047,7 +3048,7 @@ def rank_count_timing(tables, ctx, results):
     for distance in (Distance.L1, Distance.L2):
         args = (*eval_inputs(tables["entity"], tables["relation"], EVAL_BATCH, distance, rng), distance)
         name = rank_count.KERNEL_NAMES[distance]
-        b_ms, b_by = bound_ms(distance, K, N_ENTITIES, EVAL_BATCH)
+        b_ms, b_by = least_ms(*roofline.rank_count_work(distance == Distance.L1, K, N_ENTITIES, [EVAL_BATCH]))
         device_ms, profiler_ms = rank_count_device_ms(args)
         per_sm = rank_count.resident_blocks_per_sm(distance)
         waves = plan.waves(per_sm, sms)

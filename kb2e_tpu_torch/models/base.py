@@ -11,6 +11,9 @@ virtual-hook surface (``common/trainer.h:58-77``):
   vectorised: reads the batch-start snapshot, accumulates all margin-violating
   updates with scatter-adds, then applies the constraint projections once
   (fast mode).
+* ``stepper``            ≙ an epoch of ``batch_update`` on one device, run as
+  the model picks: hand-written kernels (TransE), a replayed CUDA graph
+  (TransR, CTransR) or eager ops.
 * ``sequential_update``  ≙ the exact double-buffered per-sample semantics
   (transe/trainer.cpp:25-56, transh/trainer.cpp:11-58,
   transr/trainer.cpp:118-191) — the parity path, a hand-written kernel on
@@ -26,7 +29,7 @@ virtual-hook surface (``common/trainer.h:58-77``):
 from __future__ import annotations
 
 import abc
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -66,27 +69,9 @@ class Model(abc.ABC):
     # False for models with no reference binary to be faithful to (CTransR,
     # PTransE): their parity mode is the vectorised update.
     has_parity_mode: bool = True
-    # True if the fast epoch can run over one fused [N+R, k] table
-    # (``fuse_params`` / ``fused_table_update`` / ``unfuse_params``, and on
-    # one card ``fused_table_kernel``, the update's hand-written kernels).
-    supports_fused_table: bool = False
     # The fast update's chunk for chunk-sequential models (TransR): the
     # epoch runner feeds them the epoch in chunks of this many samples.
     chunk_size: Optional[int] = None
-    # True if the fast update is ``chunk_update_`` applied chunk by chunk in
-    # place on a fused [N+R, k] table and the ``chunk_tables``, which waits
-    # for the device nowhere: on one card the epoch runner replays it as a
-    # CUDA graph.
-    supports_inplace_chunk: bool = False
-    # The params besides ``entity`` and ``relation`` that ``chunk_update_``
-    # takes in its ``tables``: those it writes in place, then those it only
-    # reads.
-    chunk_tables: Tuple[str, ...] = ()
-    chunk_inputs: Tuple[str, ...] = ()
-    # The device counters that ``chunk_update_`` keeps in a count buffer
-    # (``chunk_counts``, given as ``tables["counts"]``) while a profiler
-    # records, or none.
-    chunk_counters: Tuple[str, ...] = ()
     # The params key of the table in ``weights.<tag>`` (TransH's hyperplane
     # normals, TransR's matrices), or None; its shape is ``weights_shape``.
     weights_key: Optional[str] = None
@@ -156,18 +141,14 @@ class Model(abc.ABC):
         """``params`` with the TransE seed tables loaded (``has_warm_start`` models)."""
         raise NotImplementedError(f"model {self.name} has no warm start")
 
-    def takes_fused_table_kernel(self, k: int, rows: int) -> bool:
-        """Whether ``fused_table_kernel`` (TransE's alone) takes a fused table
-        of width ``k`` and batches of ``rows`` rows."""
-        return False
-
-    def chunk_counts(self, params: Params) -> torch.Tensor:
-        """A zeroed count buffer for ``chunk_update_`` (models with ``chunk_counters``)."""
-        raise NotImplementedError(f"model {self.name} counts nothing in its chunk")
-
-    def read_chunk_counts(self, counts: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Each of ``chunk_counters`` as a device scalar, from ``counts``."""
-        raise NotImplementedError(f"model {self.name} counts nothing in its chunk")
+    def stepper(self, params: Params, feed: Batch, cfg: EmbeddingConfig, kept: Optional[dict] = None):
+        """The fast update of one device over ``feed``'s [n, rows] batches (a
+        chunked model's: chunks), in tables of its own: call it with each
+        index in order, then read ``loss`` [n] and ``params()``, the fresh
+        tables; ``params`` is never written.  The model picks how its step
+        runs.  ``kept`` is a dict its caller keeps across calls for what the
+        step may reuse (a captured graph).  Here: ``batch_update`` a batch."""
+        return BatchStepper(lambda p, batch: self.batch_update(p, batch, cfg), params, feed)
 
 
 # The keys of a chunk of the fast update (``Model.chunk_update_``).
@@ -180,6 +161,36 @@ def pad_to_chunks(batch: Batch, chunk: int) -> Batch:
     pad = -next(iter(batch.values())).shape[0] % chunk
     return {key: torch.cat([v, v.new_zeros((pad, *v.shape[1:]))]).reshape(-1, chunk, *v.shape[1:])
             for key, v in batch.items()}
+
+
+def fuse(params: Params) -> torch.Tensor:
+    """A new [N+R, k] table: the entities, then the relations."""
+    return torch.cat([params["entity"], params["relation"]])
+
+
+def unfuse(table: torch.Tensor, n_entities: int) -> Params:
+    """``table``'s entity and relation rows, as views."""
+    return {"entity": table[:n_entities], "relation": table[n_entities:]}
+
+
+class BatchStepper:
+    """A stepper (``Model.stepper``) that runs ``update(state, batch) ->
+    (state, loss)`` eagerly, one call a batch of ``feed``; ``params()`` is
+    ``finish(state)``, or the state itself."""
+
+    def __init__(self, update: Callable, state, feed: Batch, finish: Optional[Callable] = None):
+        self.update, self.state, self.feed, self.finish, self.losses = update, state, feed, finish, []
+
+    def __call__(self, i: int) -> None:
+        self.state, loss = self.update(self.state, {key: v[i] for key, v in self.feed.items()})
+        self.losses.append(loss)
+
+    @property
+    def loss(self) -> torch.Tensor:
+        return torch.stack(self.losses)
+
+    def params(self) -> Params:
+        return self.state if self.finish is None else self.finish(self.state)
 
 
 _REGISTRY: Dict[str, Model] = {}

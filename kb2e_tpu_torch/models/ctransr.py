@@ -121,8 +121,8 @@ class CTransR(transr.TransR):
     # No reference binary to be sequentially faithful to: parity mode is the
     # fast update, and K5 (TransR's kernel) never sees a CTransR batch.
     has_parity_mode = False
-    # TransR's ``batch_update`` over this chunk (``chunk_update_``), which
-    # the epoch runner replays as a CUDA graph on one card, as TransR's.
+    # TransR's ``batch_update`` and ``stepper`` over this chunk
+    # (``chunk_update_``), replayed as a CUDA graph on one card, as TransR's.
     chunk_tables = ("proj", "relation_c")
     chunk_inputs = ("centers",)
     chunk_counters = ("ctransr.routed", "ctransr.routed_top")
@@ -191,7 +191,7 @@ class CTransR(transr.TransR):
           unlike TransR.
         With ``tables["counts"]`` (``chunk_counts``) it also adds each valid
         sample to its (relation, cluster)'s count.  It waits for the device
-        nowhere, so that the epoch runner can record it as a CUDA graph.
+        nowhere, so that it can be recorded as a CUDA graph.
         """
         lr, dist = cfg.learning_rate, self.effective_distance(Distance.from_any(cfg.distance))
         phi, pti, ri, nhi, nti, vi = (chunk[key] for key in base.CHUNK_KEYS)

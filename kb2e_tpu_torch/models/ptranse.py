@@ -81,8 +81,8 @@ def l1_rows(x: torch.Tensor) -> torch.Tensor:
 class PTransE(transe.TransE):
     name = "ptranse"
     # The extra tables and the path loss do not fit TransE's fused two-table
-    # epoch: the runner must call batch_update.
-    supports_fused_table = False
+    # epoch: its steps are ``batch_update`` a batch.
+    stepper = base.Model.stepper
     # No reference binary: parity mode is the vectorised update.
     has_parity_mode = False
     has_warm_start = True

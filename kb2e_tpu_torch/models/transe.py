@@ -25,7 +25,7 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import base
 from kb2e_tpu_torch.ops import distances, projections, scatter, transe_fast, transe_update
-from kb2e_tpu_torch.utils import prng
+from kb2e_tpu_torch.utils import prng, profiling
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,10 +44,6 @@ def _residual_grad(res: torch.Tensor, distance: Distance) -> torch.Tensor:
 
 class TransE(base.Model):
     name = "transe"
-    # Entities and relations are both ball-normed, so the fast epoch can run
-    # over one [N+R, k] table: one gather, one scatter-add and one projection
-    # per batch instead of two of each.  Same deltas, same rows.
-    supports_fused_table = True
 
     def init_params(self, generator, n_entities, n_relations, cfg: EmbeddingConfig, device) -> base.Params:
         k = cfg.embedding_size
@@ -95,12 +91,6 @@ class TransE(base.Model):
         ent = scatter.scatter_add(ent, idx, delta.to(ent.dtype), cfg.scatter_mode)
         return {"entity": projections.ball_norm(ent), "relation": projections.ball_norm(rel)}, loss
 
-    def fuse_params(self, params: base.Params) -> torch.Tensor:
-        return torch.cat([params["entity"], params["relation"]])
-
-    def unfuse_params(self, table: torch.Tensor, n_entities: int) -> base.Params:
-        return {"entity": table[:n_entities], "relation": table[n_entities:]}
-
     def fused_table_update(
         self, table: torch.Tensor, n_entities: int, batch: base.Batch, cfg: EmbeddingConfig
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,23 +107,28 @@ class TransE(base.Model):
         table = scatter.scatter_add(table, idx, delta.to(table.dtype), cfg.scatter_mode)
         return projections.ball_norm(table), loss
 
-    def fused_table_kernel(
-        self, table: torch.Tensor, n_entities: int, batches: base.Batch, cfg: EmbeddingConfig
-    ) -> transe_fast.FusedBatches:
-        """``fused_table_update`` of each of ``batches``' [n, rows] batches,
-        in place on the float32 ``table``, by the three launches a batch of
-        ``ops/transe_fast.py`` on a card (by ``fused_table_update`` itself on
-        the CPU): call the result with each batch's index in order, then read
-        its ``loss`` [n]."""
+    def stepper(self, params, feed: base.Batch, cfg: EmbeddingConfig, kept=None):
+        """The fast epoch over one [N+R, k] table (entities and relations are
+        both ball-normed: one gather, one scatter-add and one projection a
+        batch instead of two of each; the same deltas, the same rows).  The
+        three launches a batch of ``ops/transe_fast.py``, in place on the
+        table, where they take it and the feed (:func:`kernels_take`); else
+        :meth:`fused_table_update` a batch (bf16, ``dedup``, the CPU)."""
+        n_entities, n = params["entity"].shape[0], feed["ph"].shape[0]
+        table, kernel = base.fuse(params), kernels_take(params, feed["ph"].shape[1], cfg)
+        profiling.count("train.batches", n)
+        profiling.count("train.batches_kernel", n if kernel else 0)
+
+        def plain(t, batch):
+            return self.fused_table_update(t, n_entities, batch, cfg)
+
+        if not kernel:
+            return base.BatchStepper(plain, table, feed, lambda t: base.unfuse(t, n_entities))
         return transe_fast.FusedBatches(
-            table, n_entities, batches, learning_rate=cfg.learning_rate, margin=cfg.margin,
-            l1=self.effective_distance(Distance.from_any(cfg.distance)) == Distance.L1,
-            plain=lambda t, batch: self.fused_table_update(t, n_entities, batch, cfg),
+            table, n_entities, feed, learning_rate=cfg.learning_rate, margin=cfg.margin,
+            l1=self.effective_distance(Distance.from_any(cfg.distance)) == Distance.L1, plain=plain,
             group=max(1, cfg.num_negatives),
         )
-
-    def takes_fused_table_kernel(self, k: int, rows: int) -> bool:
-        return transe_fast.takes(k, rows)
 
     def sequential_update(self, params, batch: base.Batch, cfg: EmbeddingConfig) -> Tuple[base.Params, torch.Tensor]:
         """The reference's per-sample update of one batch, in float32.
@@ -151,6 +146,16 @@ class TransE(base.Model):
             l1=self.effective_distance(Distance.from_any(cfg.distance)) == Distance.L1,
         )
         return {"entity": ent, "relation": rel}, loss
+
+
+def kernels_take(params: base.Params, rows: int, cfg: EmbeddingConfig) -> bool:
+    """Whether :meth:`TransE.stepper` runs ``ops/transe_fast.py``'s kernels
+    for ``params`` and batches of ``rows`` rows: float32 tables on one CUDA
+    device, direct scatters (the kernels add as ``index_add`` does), and a
+    width and batch the kernels take."""
+    ent, rel = params["entity"], params["relation"]
+    return (cfg.scatter_mode == "direct" and ent.device.type == "cuda" and rel.device == ent.device
+            and ent.dtype == rel.dtype == torch.float32 and transe_fast.takes(ent.shape[1], rows))
 
 
 MODEL = base.register(TransE())

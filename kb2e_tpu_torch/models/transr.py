@@ -25,7 +25,8 @@ applied ``chunk_size`` samples at a time, each chunk from its own start
 snapshot, with one masked iteration of the coupled ‖a·W‖ ≤ 1 descent on the
 touched pairs.  A chunk runs in place on a fused [N+R, k] table and W
 (``chunk_update_``, whose stages CTransR's chunk shares); on one card the
-epoch runner replays it as a CUDA graph.  Parity mode
+epoch's chunks replay it as a CUDA graph (:meth:`TransR.stepper`,
+:class:`ChunkGraph`).  Parity mode
 (``sequential_update``) replays the exact per-sample sequence through the
 hand-written kernel of ``ops/transr_update.py`` on the card.
 """
@@ -41,7 +42,7 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import base
 from kb2e_tpu_torch.ops import distances, projections, scatter, transr_update
-from kb2e_tpu_torch.utils import prng
+from kb2e_tpu_torch.utils import profiling, prng
 
 
 def _project(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -122,8 +123,14 @@ class TransR(base.Model):
     # The chunk of the fast update, and the mini-batch the epoch runner feeds
     # it (train/step.py); the JAX package's measured optimum.
     chunk_size = 256
-    supports_inplace_chunk = True
-    chunk_tables = ("proj",)
+    # The params besides ``entity`` and ``relation`` that ``chunk_update_``
+    # takes in its ``tables``: those it writes in place, then those it only
+    # reads; and the device counters it keeps in a count buffer
+    # (``chunk_counts``, given as ``tables["counts"]``) while a profiler
+    # records, or none.
+    chunk_tables: Tuple[str, ...] = ("proj",)
+    chunk_inputs: Tuple[str, ...] = ()
+    chunk_counters: Tuple[str, ...] = ()
     weights_key = "proj"  # the matrices, R·k rows of k
     has_warm_start = True
 
@@ -161,20 +168,54 @@ class TransR(base.Model):
         """Chunk-sequential fast update, as ``kb2e_tpu.models.transr.TransR.batch_update``.
 
         The batch is padded to whole chunks of ``min(chunk_size, B)`` (pad
-        slots index row 0 and are invalid), the tables are copied once, and
-        :meth:`chunk_update_` applies the chunks in order to the copies.
-        Returns (params, loss summed over the chunks); ``params`` is not
-        written.
+        slots index row 0 and are invalid) and applied eagerly chunk by chunk
+        (:meth:`eager_chunks`).  Returns (params, loss summed over the
+        chunks); ``params`` is not written.
         """
-        chunk = min(self.chunk_size, batch["ph"].shape[0])
-        chunks = base.pad_to_chunks({key: batch[key] for key in base.CHUNK_KEYS}, chunk)
+        chunks = base.pad_to_chunks({key: batch[key] for key in base.CHUNK_KEYS},
+                                    min(self.chunk_size, batch["ph"].shape[0]))
+        steps = self.eager_chunks(params, chunks, cfg)
+        for i in range(chunks["ph"].shape[0]):
+            steps(i)
+        return steps.params(), steps.loss.sum()
+
+    def stepper(self, params, feed: base.Batch, cfg: EmbeddingConfig, kept=None):
+        """The fast epoch over ``feed``'s [n, chunk] chunks.  On one CUDA
+        device, with direct scatters and float32 tables, the chunk is
+        replayed as a CUDA graph (:class:`ChunkGraph`), captured at the first
+        call and again only when what it bakes in changes (for CTransR also
+        when a profiler starts or stops recording: only a graph captured
+        under one counts); ``kept["graph"]`` holds it between calls.
+        Everywhere else (the CPU, ``scatter_mode="dedup"``, whose duplicate
+        merge waits for the device) the same chunk runs eagerly
+        (:meth:`eager_chunks`)."""
+        rows = feed["ph"].shape[1]
+        keys = ("entity", "relation", *self.chunk_tables, *self.chunk_inputs)
+        replay = (cfg.scatter_mode == "direct" and params["entity"].is_cuda and rows <= self.chunk_size
+                  and all(params[key].dtype == torch.float32 for key in keys))
+        profiling.count("train.chunks", feed["ph"].shape[0])
+        profiling.count("train.chunks_replayed", feed["ph"].shape[0] if replay else 0)
+        if not replay:
+            return self.eager_chunks(params, feed, cfg)
+        kept = {} if kept is None else kept
+        counting = bool(self.chunk_counters) and profiling.recording()
+        graph = kept.pop("graph", None)
+        if graph is None or graph.key != ChunkGraph.key_of(self, params, rows, cfg, counting):
+            graph = None  # the old graph's memory goes before the new one is captured
+            graph = ChunkGraph(self, cfg, params, rows, counting)
+        kept["graph"] = graph
+        return graph.load(params, feed)
+
+    def eager_chunks(self, params, feed: base.Batch, cfg: EmbeddingConfig) -> base.BatchStepper:
+        """:meth:`chunk_update_` a chunk of ``feed``, eagerly, in place on a
+        fused copy of the entity and relation tables and copies of the
+        ``chunk_tables`` (the ``chunk_inputs`` are ``params``' own)."""
         n_entities = params["entity"].shape[0]
-        fused = torch.cat([params["entity"], params["relation"]])
+        fused = base.fuse(params)
         tables = {key: params[key].clone(memory_format=torch.contiguous_format) for key in self.chunk_tables}
         tables.update({key: params[key] for key in self.chunk_inputs})
-        losses = [self.chunk_update_(fused, tables, n_entities, dict(zip(base.CHUNK_KEYS, one)), cfg)
-                  for one in zip(*(chunks[key] for key in base.CHUNK_KEYS))]
-        return {"entity": fused[:n_entities], "relation": fused[n_entities:], **tables}, torch.stack(losses).sum()
+        return base.BatchStepper(lambda _, chunk: (None, self.chunk_update_(fused, tables, n_entities, chunk, cfg)),
+                                 None, feed, lambda _: {**base.unfuse(fused, n_entities), **tables})
 
     def chunk_update_(self, fused: torch.Tensor, tables: base.Params, n_entities: int, chunk: base.Batch,
                       cfg: EmbeddingConfig) -> torch.Tensor:
@@ -193,8 +234,8 @@ class TransR(base.Model):
         * one masked iteration of the coupled ‖a·W‖ ≤ 1 descent on the four
           pair groups (h, r), (t, r), (corrupted, r) and (relation, r)
           (:func:`ball_step_`).
-        It waits for the device nowhere, so that the epoch runner can record
-        it as a CUDA graph (``train/step.py``).
+        It waits for the device nowhere, so that it can be recorded as a
+        CUDA graph (:class:`ChunkGraph`).
         """
         lr, dist = cfg.learning_rate, self.effective_distance(Distance.from_any(cfg.distance))
         phi, pti, ri, nhi, nti, vi = (chunk[key] for key in base.CHUNK_KEYS)
@@ -242,6 +283,101 @@ class TransR(base.Model):
         ent = projections.sphere_norm(torch.as_tensor(np.asarray(seed_entity, np.float32), device=dev))
         rel = torch.as_tensor(np.asarray(seed_relation, np.float32), device=dev)
         return {**params, "entity": ent, "relation": rel}
+
+
+class ChunkGraph:
+    """A chunk model's in-place chunk (``TransR.chunk_update_``, or
+    CTransR's) recorded once as a CUDA graph, replayed for every chunk.
+
+    The graph reads and writes buffers of its own at fixed addresses: the
+    fused [N+R, k] table and the model's ``chunk_tables`` and
+    ``chunk_inputs`` (TransR: ``proj``; CTransR: ``proj``, ``relation_c``
+    and the ``centers`` it only reads), a feed [6, chunk] of the chunk's ids
+    and ``valid`` (int64) and the chunk's loss.  Warm-up (on a side stream,
+    as capture requires) and capture run on these buffers before any
+    caller's tables are copied in: of ``params`` the graph takes only the
+    shapes and the device.  A graph captured ``counting`` (while a profiler
+    records, for a model with ``chunk_counters``) also adds into the
+    model's count buffer, which :meth:`params` reads into the program's
+    device counters once an epoch; any other graph has no kernel of it.
+
+    As a stepper (``TransR.stepper``): :meth:`load` an epoch's tables and
+    feed, call it with each chunk's index in order, then read ``loss`` [n]
+    and ``params()``.
+    """
+
+    WARMUP = 2
+
+    @staticmethod
+    def key_of(model: TransR, params: base.Params, chunk: int, cfg: EmbeddingConfig, counting: bool):
+        """What a graph bakes in: the device, the table shapes, the chunk,
+        the update's constants (TF32 picks the products' kernels) and
+        whether it counts."""
+        shapes = tuple(tuple(params[key].shape) for key in ("entity", "relation", *model.chunk_tables,
+                                                             *model.chunk_inputs))
+        return (params["entity"].device, shapes, chunk, cfg.distance, cfg.learning_rate, cfg.margin,
+                torch.backends.cuda.matmul.allow_tf32, counting)
+
+    def __init__(self, model: TransR, cfg: EmbeddingConfig, params: base.Params, chunk: int, counting: bool = False):
+        self.model, self.key = model, self.key_of(model, params, chunk, cfg, counting)
+        device, (n_relations, k) = params["entity"].device, params["relation"].shape
+        self.n_entities = n_entities = params["entity"].shape[0]
+        self.fused = torch.zeros(n_entities + n_relations, k, device=device)
+        self.tables = {key: torch.zeros_like(params[key], memory_format=torch.contiguous_format)
+                       for key in (*model.chunk_tables, *model.chunk_inputs)}
+        self.counts = model.chunk_counts(params) if counting else None
+        tables = self.tables if self.counts is None else {**self.tables, "counts": self.counts}
+        self.feed = torch.zeros(len(base.CHUNK_KEYS), chunk, dtype=torch.int64, device=device)
+
+        def body() -> torch.Tensor:
+            ids = dict(zip(base.CHUNK_KEYS, self.feed))
+            ids["valid"] = ids["valid"] != 0
+            return model.chunk_update_(self.fused, tables, n_entities, ids, cfg)
+
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.chunk_loss = body()
+        if self.counts is not None:
+            self.counts.zero_()  # what warm-up and capture added
+
+    def load(self, params: base.Params, feed: base.Batch) -> "ChunkGraph":
+        """Copies ``params``' tables into the graph's and readies ``feed``'s
+        [n, chunk] chunks; returns the graph."""
+        n = self.n_entities
+        self.fused[:n].copy_(params["entity"])
+        self.fused[n:].copy_(params["relation"])
+        for key, table in self.tables.items():
+            table.copy_(params[key])
+        self.inputs = {key: params[key] for key in self.model.chunk_inputs}
+        self.chunks = torch.stack([feed[key].to(torch.int64) for key in base.CHUNK_KEYS], dim=1)
+        self.loss = torch.empty(self.chunks.shape[0], device=self.fused.device)
+        return self
+
+    def __call__(self, i: int) -> None:
+        """Chunk i: one copy of its ids, the replay and one copy of its loss."""
+        self.feed.copy_(self.chunks[i])
+        self.graph.replay()
+        self.loss[i].copy_(self.chunk_loss)
+
+    def params(self) -> base.Params:
+        """Fresh tables (those the chunk only reads are the loaded params'
+        own); reads and clears the count buffer, and lets the epoch's feed go."""
+        self.chunks = None
+        if self.counts is not None:
+            for name, value in self.model.read_chunk_counts(self.counts).items():
+                profiling.count_device(name, value)
+            self.counts.zero_()
+        out = base.unfuse(self.fused.clone(), self.n_entities)
+        out.update({key: self.tables[key].clone() for key in self.model.chunk_tables})
+        out.update(self.inputs)
+        return out
 
 
 MODEL = base.register(TransR())

@@ -8,11 +8,13 @@ use, under a name that carries a hash of the source, the headers of
 unchanged one is not.  nvcc's output, with
 ptxas's register and spill report for each kernel, is kept beside the
 library as ``.log``.  The wrappers share the checks of what a library's
-launchers return.
+launchers return, and one count of the kernels they launch,
+``launch_counts``, keyed by kernel name.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -34,6 +36,14 @@ NVCC_FLAGS = (
     "-Xptxas",  # -v: ptxas reports each kernel's registers and spills
     "-v",
 )
+
+# Kernel launches by kernel name; the wrappers add to it only where a kernel
+# is launched.
+launch_counts: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
 
 
 def nvcc() -> str:

@@ -24,13 +24,12 @@ arithmetic.
   version: the blockwise sweep of ``ranking.rank_queries``, summing over k
   in the kernel's order.
 
-``launch_counts`` counts the kernel's launches per distance; only the launch
-path adds to it.
+Each launch adds one to ``cuda_build.launch_counts`` under the kernel's
+name, per distance; only the launch path adds to it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -50,9 +49,6 @@ BUILD_DIR = cuda_build.BUILD_DIR
 # owns, the lanes of a warp along the entities, and the ring: k-rows a
 # chunk, chunks (stages) it holds.  128 entities x 256 queries, 512 threads.
 TILE = (16, 32, 8, 8, 8, 16, 3)
-
-# Kernel launches by kernel name, added to only where a kernel is launched.
-launch_counts: collections.Counter = collections.Counter()
 
 
 class Plan(NamedTuple):
@@ -121,10 +117,6 @@ def kernel_takes(x_t: torch.Tensor) -> bool:
         return False
     last = x_t.storage_offset() + (k - 1) * ld + padded_ld(m) if k else 0
     return last * x_t.element_size() <= x_t.untyped_storage().nbytes()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def build() -> Path:
@@ -280,7 +272,7 @@ def launcher(proj_t, queries_t, e_true, true_idx, e_sq, q_sq, out, distance: Dis
 
     def go() -> None:
         cuda_build.check_launch(lib, lib.kb2e_rank_count(*args), "rank-count")
-        launch_counts[name] += 1
+        cuda_build.launch_counts[name] += 1
 
     return go
 

@@ -27,13 +27,12 @@ place, where a row's running sum crosses a power of two.  Both orders are
 torch 2.11's, copied and not called (``csrc/transe_fast.cu`` says what a
 torch with other orders changes).
 
-``launch_counts`` counts the kernels launched, by name: three a batch on the
-card; only the launch path adds to it.
+Each batch on the card adds its three kernels to ``cuda_build.launch_counts``,
+by name; only the launch path adds to it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -49,13 +48,6 @@ BUILD_DIR = cuda_build.BUILD_DIR
 WHAT = "TransE fast-batch"  # names the kernels in launch errors
 MAX_K = 1024  # 8 chunks of 4 coordinates a lane
 ID_KEYS = ("ph", "pt", "r", "nh", "nt")
-
-# Kernel launches by kernel name, added to only where a kernel is launched.
-launch_counts: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def build() -> Path:
@@ -91,7 +83,8 @@ class FusedBatches:
     ``table`` is the fused [N+R, k] float32 table (relation row ids offset by
     ``n_entities``), contiguous; ``batches`` holds ph, pt, r, nh, nt and valid,
     [n, rows] each.  Calling the object with i applies batch i; the batches
-    must be applied in order.  ``loss`` [n] holds each applied batch's loss.
+    must be applied in order.  ``loss`` [n] holds each applied batch's loss,
+    and ``params()`` gives the table's entity and relation rows.
     ``group`` is the rows a positive takes side by side in the feed (the
     negatives a positive, K): the kernel gives each group of rows one warp,
     and is right for any layout.
@@ -122,7 +115,7 @@ class FusedBatches:
             if x.device != dev or tuple(x.shape) != (n, rows):
                 raise ValueError(f"transe_fast: {key} must be of shape {(n, rows)} on {dev}, "
                                  f"got {tuple(x.shape)} on {x.device}")
-        self.table, self.n, self.on_card = table, n, dev.type == "cuda"
+        self.table, self.n, self.n_entities, self.on_card = table, n, n_entities, dev.type == "cuda"
         self.loss = torch.zeros(n, dtype=torch.float32, device=dev)
         if not self.on_card:
             self.batches, self.plain = batches, plain
@@ -154,4 +147,8 @@ class FusedBatches:
             *self.tables, *(p + 4 * step for p in self.ids), self.valid + step, self.losses + 4 * i, self.rows,
             *self.tail), WHAT)
         for name in KERNEL_NAMES:
-            launch_counts[name] += 1
+            cuda_build.launch_counts[name] += 1
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """``table``'s entity and relation rows, as views."""
+        return {"entity": self.table[:self.n_entities], "relation": self.table[self.n_entities:]}

@@ -31,13 +31,13 @@ One batch of the reference's hot loop (``transe/trainer.cpp:25-56``,
   rounds every elementwise step as its own torch op, so on the card the
   kernel and the plain version agree bit for bit.
 
-``launch_counts`` counts the wrapper's calls on the card, one a batch (its
-three launches together), per distance; only the launch path adds to it.
+Each of the wrapper's calls on the card adds one to
+``cuda_build.launch_counts``, one a batch (its three launches together), per
+distance; only the launch path adds to it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -55,13 +55,6 @@ SOURCE = cuda_build.CSRC / "transe_update.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
 WHAT = "TransE sequential-update"  # names the kernels in launch errors
 MAX_K = 1024  # one coordinate per thread, one block a sample
-
-# Kernel launches by kernel name, added to only where a kernel is launched.
-launch_counts: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def build() -> Path:
@@ -215,7 +208,7 @@ def transe_sequential_update(
         viol.data_ptr(), pred.data_ptr(), order.data_ptr(),
         k, b, int(l1), index, float(learning_rate), stream,
     ), WHAT)
-    launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
+    cuda_build.launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
     return ent_out, rel_out, loss, decided
 
 

@@ -32,13 +32,13 @@ One batch of the reference's hot loop (``transh/trainer.cpp:11-58``,
   (:func:`kernel_order_sum`) and rounds every elementwise step as its own
   torch op, so on the card the kernel and the plain version agree bit for bit.
 
-``launch_counts`` counts the wrapper's calls on the card, one a batch (its
-three launches together); only the launch path adds to it.
+Each of the wrapper's calls on the card adds one to
+``cuda_build.launch_counts``, one a batch (its three launches together);
+only the launch path adds to it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -54,13 +54,6 @@ BUILD_DIR = cuda_build.BUILD_DIR
 WHAT = "TransH sequential-update"  # names the kernels in launch errors
 MAX_K = 1024  # one coordinate per thread, one block a sample
 WARP = 32
-
-# Kernel launches by kernel name, added to only where a kernel is launched.
-launch_counts: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def build() -> Path:
@@ -293,7 +286,7 @@ def transh_sequential_update(
         viol.data_ptr(), xs.data_ptr(), pred.data_ptr(), order.data_ptr(), trips.data_ptr(),
         k, b, max_iters, index, float(learning_rate), stream,
     ), WHAT)
-    launch_counts[KERNEL_NAME] += 1
+    cuda_build.launch_counts[KERNEL_NAME] += 1
     return ent_out, rel_out, norm_out, loss, decided, trips
 
 

@@ -37,13 +37,13 @@ One batch of the reference's hot loop (``transr/trainer.cpp:118-191``,
   go through float64, :func:`sqrt_rn`, since the CPU's vectorised float32
   square root is not correctly rounded).
 
-``launch_counts`` counts the wrapper's calls on the card, one a batch (its
-three launches together); only the launch path adds to it.
+Each of the wrapper's calls on the card adds one to
+``cuda_build.launch_counts``, one a batch (its three launches together);
+only the launch path adds to it.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -62,13 +62,6 @@ WHAT = "TransR sequential-update"  # names the kernels in launch errors
 # One coordinate per thread and the working W_r in shared memory, k × (k | 1)
 # floats: 224 keeps it inside the 227 KB a block may have.
 MAX_K = 224
-
-# Kernel launches by kernel name, added to only where a kernel is launched.
-launch_counts: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def build() -> Path:
@@ -305,7 +298,7 @@ def transr_sequential_update(
         viol.data_ptr(), xs.data_ptr(), pred.data_ptr(), order.data_ptr(), trips.data_ptr(),
         k, b, max_iters, index, float(learning_rate), stream,
     ), WHAT)
-    launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
+    cuda_build.launch_counts[KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]] += 1
     return ent_out, rel_out, proj_out, loss, decided, trips
 
 

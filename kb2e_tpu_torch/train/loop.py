@@ -113,7 +113,7 @@ def train(
         return p if mesh is None else sharding.gather_params(mesh, p, triples.n_entities)
 
     if cfg.update_mode == "fast":
-        run_epoch = step_lib.make_epoch_runner(model, cfg, batch_size, cfg.num_batches, mesh=mesh)
+        run_epoch = step_lib.EpochRunner(model, cfg, batch_size, cfg.num_batches, mesh=mesh)
     else:
         run_step = step_lib.make_train_step(model, cfg, batch_size)
 

@@ -44,7 +44,7 @@ from kb2e_tpu_torch.data import triples
 from kb2e_tpu_torch.eval import harness, ranking_cluster
 from kb2e_tpu_torch.io import text
 from kb2e_tpu_torch.models import ctransr
-from kb2e_tpu_torch.ops import rank_count, transe_update, transh_update, transr_update
+from kb2e_tpu_torch.ops import cuda_build, transr_update
 from kb2e_tpu_torch.train import loop
 
 torch.set_num_threads(1)
@@ -52,7 +52,6 @@ torch.set_num_threads(1)
 N_ENT, N_REL, N_CLUSTERS = 40, 6, 4
 KEYS = ("entity", "relation", "relation_c", "proj", "centers")
 IDX_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
-KERNEL_MODULES = (rank_count, transe_update, transh_update, transr_update)
 
 
 def _tables(seed, k, n=N_ENT, n_rel=N_REL):
@@ -316,8 +315,7 @@ def test_parity_mode_is_the_fast_update_and_never_reaches_a_kernel(monkeypatch, 
     arrays = dict(zip(IDX_KEYS, map(torch.from_numpy, _batch_arrays(10, 40))))
     cfg = EmbeddingConfig(embedding_size=8, learning_rate=0.05, update_mode="parity")
     m = get_model("ctransr")
-    for module in KERNEL_MODULES:
-        module.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got, loss = m.sequential_update(params_from_numpy(host, "cpu"), arrays, cfg)
     want, want_loss = m.batch_update(params_from_numpy(host, "cpu"), arrays, cfg)
     assert all(torch.equal(got[key], want[key]) for key in KEYS) and torch.equal(loss, want_loss)
@@ -326,7 +324,7 @@ def test_parity_mode_is_the_fast_update_and_never_reaches_a_kernel(monkeypatch, 
     with pytest.warns(UserWarning, match="--update-mode parity has no effect for ctransr: no reference binary"):
         params = loop.train(m, cfg.replace(num_batches=4, max_epochs=1, seed=3), ts, device="cpu")
     assert set(params) == set(KEYS)
-    assert all(not module.launch_counts for module in KERNEL_MODULES)
+    assert not cuda_build.launch_counts
 
 
 # --- the cluster-routed sweep and the harness -------------------------------------------
@@ -369,8 +367,7 @@ def test_harness_ctransr_metrics_equal_jax_exactly(tiny_kg_dir, tiny_dataset, di
     host = _dyadic(dataset.n_entities, dataset.n_relations, 8, seed=30 + int(distance))
     knobs = dict(embedding_size=8, eval_batch_size=batch, eval_block_size=block, distance=int(distance))
     want = jax_harness.evaluate(jax_get_model("ctransr"), _jax(host), tiny_dataset, JConfig(**knobs))
-    for module in KERNEL_MODULES:
-        module.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     raw, filt, sizes = harness.rank_all(get_model("ctransr"), params_from_numpy(host, "cpu"), dataset,
                                         EmbeddingConfig(**knobs), device="cpu")
     assert harness.metrics_from_ranks(raw, filt, sizes) == want  # every metric, MRR included, to the last bit

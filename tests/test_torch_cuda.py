@@ -22,8 +22,8 @@ import torch
 
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
-from kb2e_tpu_torch.models import ctransr, get_model
-from kb2e_tpu_torch.ops import distances, rank_count, schedule, transe_update, transh_update, transr_update
+from kb2e_tpu_torch.models import base, ctransr, get_model
+from kb2e_tpu_torch.ops import cuda_build, distances, rank_count, schedule, transe_update, transh_update, transr_update
 from kb2e_tpu_torch.parallel import eval as par_eval
 from kb2e_tpu_torch.train import step as step_lib
 from kb2e_tpu_torch.utils import profiling
@@ -76,14 +76,14 @@ def _bare_counts(args):
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
 def test_kernel_equals_plain_version_on_dyadic_inputs(cuda, n, k, b, distance):
     args = _args(n, k, b, distance, cuda, seed=n + k + b)
-    rank_count.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = rank_count.rank_counts(*args)
     torch.cuda.synchronize()
-    assert dict(rank_count.launch_counts) == {rank_count.KERNEL_NAMES[distance]: 1}
+    assert dict(cuda_build.launch_counts) == {rank_count.KERNEL_NAMES[distance]: 1}
     want = rank_count.rank_counts_reference(*args)
     assert got.dtype == torch.int32 and got.shape == (b,)
     assert torch.equal(got, want)
-    assert dict(rank_count.launch_counts) == {rank_count.KERNEL_NAMES[distance]: 1}
+    assert dict(cuda_build.launch_counts) == {rank_count.KERNEL_NAMES[distance]: 1}
     # Integer atomics: the same counts on every run.
     assert torch.equal(rank_count.rank_counts(*args), got)
 
@@ -212,13 +212,13 @@ def _update_case(n, n_rel, k, b, seed, dev, dyadic=True):
 def test_update_kernel_equals_plain_version_on_dyadic_snapshots(cuda, n, n_rel, k, b, l1):
     args = _update_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, l1=l1)
-    transe_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     ent, rel, loss, viol = transe_update.transe_sequential_update(*args, **kw)
     torch.cuda.synchronize()
     name = transe_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
-    assert dict(transe_update.launch_counts) == {name: 1}
+    assert dict(cuda_build.launch_counts) == {name: 1}
     want = transe_update.transe_sequential_update_reference(*args, **kw)
-    assert dict(transe_update.launch_counts) == {name: 1}
+    assert dict(cuda_build.launch_counts) == {name: 1}
     assert torch.equal(viol, want[3]) and 0 < int(viol.sum()) < b
     assert float(loss) == float(want[2])
     assert torch.equal(ent, want[0]) and torch.equal(rel, want[1])
@@ -271,9 +271,9 @@ def test_parity_update_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
     batch = dict(zip(("ph", "pt", "r", "nh", "nt", "valid"), args[2:]))
     cfg = EmbeddingConfig(embedding_size=16, learning_rate=0.05, update_mode="parity")
     for impl in ("auto", "pallas"):
-        transe_update.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         get_model("transe").sequential_update(params, batch, cfg.replace(parity_impl=impl))
-        assert dict(transe_update.launch_counts) == {"transe_update_l1": 1}
+        assert dict(cuda_build.launch_counts) == {"transe_update_l1": 1}
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transe").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
 
@@ -305,12 +305,12 @@ def test_transh_kernel_equals_plain_version_bit_for_bit(cuda, n, n_rel, k, b, ma
     # three tables agree exactly.
     args = _transh_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, max_iters=max_iters)
-    transh_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = transh_update.transh_sequential_update(*args, **kw)
     torch.cuda.synchronize()
-    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    assert dict(cuda_build.launch_counts) == {"transh_update": 1}
     want = transh_update.transh_sequential_update_reference(*args, **kw)
-    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    assert dict(cuda_build.launch_counts) == {"transh_update": 1}
     assert torch.equal(got[4], want[4]) and 0 < int(got[4].sum()) < b
     assert torch.equal(got[5], want[5]) and int(got[5].sum()) > 0
     assert float(got[3]) == float(want[3])
@@ -357,9 +357,9 @@ def test_transh_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
     batch = dict(zip(("ph", "pt", "r", "nh", "nt", "valid"), args[3:]))
     cfg = EmbeddingConfig(embedding_size=16, learning_rate=0.05, update_mode="parity")
     for impl in ("auto", "pallas"):
-        transh_update.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         out, _ = get_model("transh").sequential_update(params, batch, cfg.replace(parity_impl=impl))
-        assert dict(transh_update.launch_counts) == {"transh_update": 1}
+        assert dict(cuda_build.launch_counts) == {"transh_update": 1}
         assert set(out) == set(params)
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transh").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
@@ -398,12 +398,12 @@ def test_transr_kernel_equals_plain_version_bit_for_bit(cuda, n, n_rel, k, b, ma
     args = _transr_case(n, n_rel, k, b, seed=n + k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, l1=l1, max_iters=max_iters)
     name = transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]
-    transr_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = transr_update.transr_sequential_update(*args, **kw)
     torch.cuda.synchronize()
-    assert dict(transr_update.launch_counts) == {name: 1}
+    assert dict(cuda_build.launch_counts) == {name: 1}
     want = transr_update.transr_sequential_update_reference(*args, **kw)
-    assert dict(transr_update.launch_counts) == {name: 1}
+    assert dict(cuda_build.launch_counts) == {name: 1}
     assert torch.equal(got[4], want[4]) and 0 < int(got[4].sum()) < b
     assert torch.equal(got[5], want[5]) and int(got[5][:, 0].sum()) > 0
     if max_iters == 1:
@@ -457,9 +457,9 @@ def test_transr_parity_on_the_card_takes_the_kernel_under_every_impl_but_scan(cu
     batch = dict(zip(("ph", "pt", "r", "nh", "nt", "valid"), args[3:]))
     cfg = EmbeddingConfig(embedding_size=16, learning_rate=0.05, update_mode="parity", distance=1)
     for impl in ("auto", "pallas"):
-        transr_update.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         out, _ = get_model("transr").sequential_update(params, batch, cfg.replace(parity_impl=impl))
-        assert dict(transr_update.launch_counts) == {"transr_update_l2": 1}
+        assert dict(cuda_build.launch_counts) == {"transr_update_l2": 1}
         assert set(out) == set(params)
     with pytest.raises(ValueError, match="parity_impl='scan'"):
         get_model("transr").sequential_update(params, batch, cfg.replace(parity_impl="scan"))
@@ -542,10 +542,10 @@ def _assert_stress_result(kind, args, got, want, m=3):
 def test_transe_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, l1):
     args = _stress_case("transe", kind, k, b, seed=k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, l1=l1)
-    transe_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = transe_update.transe_sequential_update(*args, **kw)
     torch.cuda.synchronize()
-    assert dict(transe_update.launch_counts) == {transe_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
+    assert dict(cuda_build.launch_counts) == {transe_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
     _assert_stress_result(kind, args, got, transe_update.transe_sequential_update_reference(*args, **kw), m=2)
 
 
@@ -554,10 +554,10 @@ def test_transe_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, 
 def test_transh_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b):
     args = _stress_case("transh", kind, k, b, seed=k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, max_iters=16)
-    transh_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = transh_update.transh_sequential_update(*args, **kw)
     torch.cuda.synchronize()
-    assert dict(transh_update.launch_counts) == {"transh_update": 1}
+    assert dict(cuda_build.launch_counts) == {"transh_update": 1}
     _assert_stress_result(kind, args, got, transh_update.transh_sequential_update_reference(*args, **kw))
 
 
@@ -569,10 +569,10 @@ def test_transh_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b):
 def test_transr_kernel_equals_plain_version_on_stress_batches(cuda, kind, k, b, l1):
     args = _stress_case("transr", kind, k, b, seed=k + b, dev=cuda)
     kw = dict(learning_rate=0.05, margin=1.0, l1=l1, max_iters=16)
-    transr_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = transr_update.transr_sequential_update(*args, **kw)
     torch.cuda.synchronize()
-    assert dict(transr_update.launch_counts) == {transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
+    assert dict(cuda_build.launch_counts) == {transr_update.KERNEL_NAMES[Distance.L1 if l1 else Distance.L2]: 1}
     _assert_stress_result(kind, args, got, transr_update.transr_sequential_update_reference(*args, **kw))
 
 
@@ -608,11 +608,11 @@ def test_ptranse_entity_ranks_through_the_rank_count_equal_the_plain_version(cud
 
     dataset, host = _ptranse_kg(tmp_path, 24)
     cfg = EmbeddingConfig(embedding_size=24, distance=distance)
-    rank_count.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     card = harness.rank_all(get_model("ptranse"), {k: v.to(cuda) for k, v in host.items()}, dataset, cfg,
                             device=cuda)
     n_batches = -(-2 * dataset.test[0].shape[0] // cfg.eval_batch_size)
-    assert rank_count.launch_counts == {rank_count.KERNEL_NAMES[distance]: n_batches}  # one group, one a batch
+    assert cuda_build.launch_counts == {rank_count.KERNEL_NAMES[distance]: n_batches}  # one group, one a batch
     cpu = harness.rank_all(get_model("ptranse"), host, dataset, cfg, device="cpu")
     for got, want in zip(card, cpu):
         assert np.array_equal(got, want)
@@ -630,10 +630,10 @@ def test_ptranse_relation_ranks_with_evidence_on_the_card_equal_the_cpus(cuda, t
                                    query_pairs=(dataset.test[0], dataset.test[1]))
     cfg = EmbeddingConfig(embedding_size=16, path_composition=comp)
     m = get_model("ptranse")
-    rank_count.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     card = harness.relation_ranks(m, {k: v.to(cuda) for k, v in host.items()}, dataset, cfg, path_store=store,
                                   device=cuda)
-    assert not rank_count.launch_counts
+    assert not cuda_build.launch_counts
     cpu = harness.relation_ranks(m, host, dataset, cfg, path_store=store, device="cpu")
     plain = harness.relation_ranks(m, host, dataset, cfg, device="cpu")
     assert all(np.array_equal(a, b) for a, b in zip(card, cpu)) and not np.array_equal(card[0], plain[0])
@@ -681,7 +681,7 @@ def test_block_squared_norms_of_a_shard_have_the_whole_tables_bits(cuda, first):
     torch.testing.assert_close(got, distances.squared_norms(shard), rtol=1e-6, atol=0)
 
 
-# --- TransR's fast chunk as a CUDA graph (train/step.py::ChunkGraph) --------------------
+# --- TransR's fast chunk as a CUDA graph (models/transr.py::ChunkGraph) ------------------
 
 CHUNK_KEYS = ("ph", "pt", "r", "nh", "nt", "valid")
 
@@ -734,12 +734,12 @@ def _eager_chunks(model, params, feed, cfg):
     return params, torch.stack(losses).sum()
 
 
-def _chunk_graph_case(cuda, distance, scatter_mode="direct", distinct=True):
+def _graph_case(cuda, distance, scatter_mode="direct", distinct=True):
     n, n_rel, k, chunk, n_chunks = 300, 40, 16, 32, 5
     cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16, margin=1.0, distance=int(distance),
                           scatter_mode=scatter_mode)
     model = get_model("transr")
-    runner = step_lib.make_epoch_runner(model, cfg, chunk, n_chunks)
+    runner = step_lib.EpochRunner(model, cfg, chunk, n_chunks)
     assert runner.chunk == chunk
     return (model, cfg, runner, _dyadic_tables(n, n_rel, k, 11 + int(distance), cuda),
             _chunk_feed(n_chunks, chunk, n, n_rel, 5 + int(distance), cuda, distinct), n)
@@ -747,10 +747,10 @@ def _chunk_graph_case(cuda, distance, scatter_mode="direct", distinct=True):
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
 def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
-    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, distance)
+    model, cfg, runner, params, feed, n = _graph_case(cuda, distance)
     before = {key: v.clone() for key, v in params.items()}
     got, loss = runner.apply(params, feed, n)
-    assert runner._graph is not None
+    assert runner.kept.get("graph") is not None
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     for key in params:
         assert torch.equal(got[key], want[key]), key
@@ -762,7 +762,7 @@ def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
 def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda, distance):
     # Duplicate rows of violating samples: the atomics of index_add may add
     # in another order in the two runs, an ulp apart at most.
-    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, distance, distinct=False)
+    model, cfg, runner, params, feed, n = _graph_case(cuda, distance, distinct=False)
     got, loss = runner.apply(params, feed, n)
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     for key in params:
@@ -773,16 +773,16 @@ def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda
 def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda):
     from torch.profiler import ProfilerActivity, profile
 
-    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, Distance.L1)
+    model, cfg, runner, params, feed, n = _graph_case(cuda, Distance.L1)
     first = {key: v[:1] for key, v in feed.items()}
     profiling.reset()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             one, _ = runner.apply(params, first, n)  # a start check's call: one chunk
-            graph = runner._graph
+            graph = runner.kept.get("graph")
             kept = {key: v.clone() for key, v in one.items()}
             out, loss = runner.apply(one, feed, n)  # then a whole feed
-            assert runner._graph is graph
+            assert runner.kept.get("graph") is graph
         counters = profiling.snapshot()["counters"]
     finally:
         profiling.reset()
@@ -798,7 +798,7 @@ def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda):
 def test_transr_dedup_runs_eagerly_on_the_card(cuda):
     from torch.profiler import ProfilerActivity, profile
 
-    model, cfg, runner, params, feed, n = _chunk_graph_case(cuda, Distance.L2, scatter_mode="dedup")
+    model, cfg, runner, params, feed, n = _graph_case(cuda, Distance.L2, scatter_mode="dedup")
     profiling.reset()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -806,7 +806,7 @@ def test_transr_dedup_runs_eagerly_on_the_card(cuda):
         counters = profiling.snapshot()["counters"]
     finally:
         profiling.reset()
-    assert runner._graph is None
+    assert runner.kept.get("graph") is None
     assert counters["train.chunks"] == feed["ph"].shape[0] and counters["train.chunks_replayed"] == 0
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     for key in params:
@@ -821,7 +821,7 @@ def _ctransr_graph_case(cuda, distance):
     n, n_rel, k, chunk, n_chunks = 300, 40, 16, 32, 5
     cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16, margin=1.0, distance=int(distance))
     model = get_model("ctransr")
-    runner = step_lib.make_epoch_runner(model, cfg, chunk, n_chunks)
+    runner = step_lib.EpochRunner(model, cfg, chunk, n_chunks)
     assert runner.chunk == chunk
     params = _dyadic_tables(n, n_rel, k, 21 + int(distance), cuda)
     rng = np.random.default_rng(22 + int(distance))
@@ -851,7 +851,8 @@ def test_ctransr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
     model, cfg, runner, params, feed, n = _ctransr_graph_case(cuda, distance)
     before = {key: v.clone() for key, v in params.items()}
     got, loss = runner.apply(params, feed, n)
-    assert runner._graph is not None and runner._graph.counts is None  # no profiler: no count kernel
+    graph = runner.kept["graph"]
+    assert graph.counts is None  # no profiler: no count kernel
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     assert sorted(got) == sorted(params) and got["centers"] is params["centers"]
     for key in params:
@@ -869,10 +870,10 @@ def test_ctransr_chunk_graph_is_captured_once_counts_its_routes_and_replays_ever
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             one, _ = runner.apply(params, first, n)  # a start check's call: one chunk
-            graph = runner._graph
+            graph = runner.kept.get("graph")
             assert graph.counts is not None
             out, loss = runner.apply(one, feed, n)  # then a whole feed
-            assert runner._graph is graph
+            assert runner.kept.get("graph") is graph
         counters = profiling.snapshot()["counters"]
     finally:
         profiling.reset()
@@ -887,7 +888,7 @@ def test_ctransr_chunk_graph_is_captured_once_counts_its_routes_and_replays_ever
     assert counters["ctransr.routed_top"] == int(first_counts.amax(1).sum() + feed_counts.amax(1).sum())
     # With the profiler stopped the graph is captured again, without the count.
     again, _ = runner.apply(params, first, n)
-    assert runner._graph is not graph and runner._graph.counts is None
+    assert runner.kept["graph"] is not graph and runner.kept["graph"].counts is None
     assert torch.equal(again["entity"], one["entity"])
 
 
@@ -935,18 +936,18 @@ def _fast_case(dev, distance, k_neg, k, n_batches, seed, dyadic=True, ordered=Tr
     feed = {key: torch.from_numpy(v.astype(np.int32)).to(dev) for key, v in zip(("ph", "pt", "r", "nh", "nt"),
                                                                               (ph, pt, r, nh, nt))}
     feed["valid"] = torch.from_numpy(valid).to(dev)
-    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, positives, n_batches)
+    runner = step_lib.EpochRunner(get_model("transe"), cfg, positives, n_batches)
     return runner, cfg, params, feed, n
 
 
 def _fast_plain(params, feed, cfg, n):
     """``fused_table_update`` over the feed's batches in turn (eager, on the tables' device)."""
     model = get_model("transe")
-    table, losses = model.fuse_params(params), []
+    table, losses = base.fuse(params), []
     for i in range(feed["ph"].shape[0]):
         table, loss = model.fused_table_update(table, n, {key: v[i] for key, v in feed.items()}, cfg)
         losses.append(loss)
-    return model.unfuse_params(table, n), torch.stack(losses).sum()
+    return base.unfuse(table, n), torch.stack(losses).sum()
 
 
 def _one_call_each(runner, params, feed, n):
@@ -962,7 +963,7 @@ def _one_call_each(runner, params, feed, n):
 def _fast_launches():
     from kb2e_tpu_torch.ops import transe_fast
 
-    return sum(transe_fast.launch_counts.values())
+    return sum(cuda_build.launch_counts[name] for name in transe_fast.KERNEL_NAMES)
 
 
 @pytest.mark.parametrize("distance, k_neg, k, ordered", [
@@ -1046,7 +1047,7 @@ def test_transe_bf16_and_dedup_stay_eager_on_the_card(cuda, dtype, scatter_mode)
     _, cfg, params, feed, n = _fast_case(cuda, Distance.L2, 1, 100, 3, seed=9, n_rel=300, positives=256,
                                          distinct=True)
     cfg = cfg.replace(scatter_mode=scatter_mode)
-    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, feed["ph"].shape[1], 3)
+    runner = step_lib.EpochRunner(get_model("transe"), cfg, feed["ph"].shape[1], 3)
     params = {key: v.to(dtype) for key, v in params.items()}
     launches = _fast_launches()
     profiling.reset()

@@ -155,7 +155,7 @@ def _single_step(kind, model_name, ts):
     host, cfg = _step_inputs(kind, model_name, ts)
     params, gen, data = params_from_numpy(host, "cpu"), torch.Generator().manual_seed(5), _data(model, ts)
     if kind == "epoch":
-        out, loss = step_lib.make_epoch_runner(model, cfg, B, 4)(params, gen, data)
+        out, loss = step_lib.EpochRunner(model, cfg, B, 4)(params, gen, data)
     else:
         out, loss = step_lib.make_train_step(model, cfg, B)(params, gen, data)
     return {k: v.numpy() for k, v in out.items()}, float(loss)
@@ -306,7 +306,7 @@ def _rank_main(rank: int, world: int, port: int, kg_dir: str, out_dir: str) -> N
             params = sharding.place_params(mesh, params_from_numpy(host, "cpu"))
             gen = torch.Generator().manual_seed(5)
             if kind == "epoch":
-                out, loss = step_lib.make_epoch_runner(model, cfg, B, 4, mesh=mesh)(params, gen, data)
+                out, loss = step_lib.EpochRunner(model, cfg, B, 4, mesh=mesh)(params, gen, data)
             else:
                 out, loss = dist_step.make_distributed_train_step(model, cfg, mesh, B)(params, gen, data)
             full = sharding.gather_params(mesh, out, N_ENT)
@@ -545,12 +545,6 @@ def test_parity_mode_under_a_mesh_raises(ts):
     cfg = _cfg(update_mode="parity", max_epochs=1, num_batches=4)
     with pytest.raises(NotImplementedError, match="single-device"):
         loop.train(get_model("transe"), cfg, ts, device="cpu", mesh=mesh_lib.single_device_mesh("cpu"))
-
-
-def test_the_fused_runner_refuses_a_mesh():
-    with pytest.raises(ValueError, match="single-device"):
-        step_lib.make_epoch_runner(get_model("transe"), _cfg(), B, 4, fused=True,
-                                   mesh=mesh_lib.single_device_mesh("cpu"))
 
 
 # --- the mesh and the flags ------------------------------------------------------------

@@ -8,6 +8,9 @@ at 2 and 3 hops, with ``max_branch``, with ``query_pairs`` and with
 built with the JAX package's flags into ``build/native/``, so its stores
 equal the JAX package's native ones bit for bit and the port's Python store
 (ids exact, confidences within 1e-6: the two sum resources in other orders).
+The JAX package's extractor is compiled for this module into a file of its
+own (:func:`jax_native`): the JAX binding builds in place beside its module,
+where every test process may be building it at the same moment.
 ``compositional_kg`` is seeded numpy: the same arrays.
 """
 
@@ -35,6 +38,20 @@ def _hand(name):
 
 def _random(seed, n_ent=60, n_rel=6, n=500):
     return tuple(a.astype(np.int32) for a in synthetic.random_kg(n_ent, n_rel, n, seed=seed))
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native extractor, loaded from a build of this
+    module's own under ``tmp_path_factory``; the binding's path, library and
+    failure flag are restored afterwards."""
+    with pytest.MonkeyPatch.context() as mp:
+        lib = tmp_path_factory.mktemp("jax_native_paths") / jax_native_paths._LIB_BASENAME
+        mp.setattr(jax_native_paths, "_LIB_PATH", str(lib))
+        mp.setattr(jax_native_paths, "_lib", None)
+        mp.setattr(jax_native_paths, "_build_failed", False)
+        assert jax_native_paths.available() and lib.exists()
+        yield jax_native_paths
 
 
 def _path_set(store, i):
@@ -94,8 +111,8 @@ def test_query_pairs_and_injected_pair_paths_equal_jax():
 
 
 @pytest.mark.parametrize("max_len,max_branch,query", [(2, 0, False), (3, 0, False), (2, 5, False), (2, 0, True)])
-def test_native_store_equals_jax_native_bit_for_bit_and_the_python_store(max_len, max_branch, query):
-    assert native_paths.available() and jax_native_paths.available()
+def test_native_store_equals_jax_native_bit_for_bit_and_the_python_store(jax_native, max_len, max_branch, query):
+    assert native_paths.available() and jax_native.available()
     h, t, r = _random(11)
     rng = np.random.default_rng(5)
     q = (rng.integers(0, 60, 70).astype(np.int32), rng.integers(0, 60, 70).astype(np.int32)) if query else None

@@ -45,8 +45,8 @@ from kb2e_tpu_torch.convert import params_from_numpy
 from kb2e_tpu_torch.data import paths, triples
 from kb2e_tpu_torch.eval import harness
 from kb2e_tpu_torch.io import text
-from kb2e_tpu_torch.models import ptranse
-from kb2e_tpu_torch.ops import projections, rank_count, transe_update, transh_update, transr_update
+from kb2e_tpu_torch.models import base, ptranse
+from kb2e_tpu_torch.ops import cuda_build, projections, rank_count
 from kb2e_tpu_torch.sampling import corruption
 from kb2e_tpu_torch.train import loop, step
 from kb2e_tpu_torch.utils import prng
@@ -54,7 +54,6 @@ from kb2e_tpu_torch.utils import prng
 torch.set_num_threads(1)
 
 N_ENT, N_REL = 30, 5
-KERNEL_MODULES = (rank_count, transe_update, transh_update, transr_update)
 BATCH_KEYS = ("ph", "pt", "r", "nh", "nt", "valid", "paths", "conf", "nr", "nr_valid")
 
 
@@ -184,7 +183,7 @@ def test_dyadic_ties_at_zero_and_at_the_hinge_equal_jax_to_the_last_bit(comp, sc
 def test_model_flags_init_and_warm_start_equal_jax():
     m = get_model("ptranse")
     assert isinstance(m, ptranse.PTransE) and m.uses_paths and m.has_warm_start
-    assert not m.supports_fused_table and not m.has_parity_mode and m.weights_key is None
+    assert m.stepper.__func__ is base.Model.stepper and not m.has_parity_mode and m.weights_key is None
     assert m.file_extras == {"relation_inv": "relation_inv", "comp_w": "comp_w"}
     assert all(not get_model(name).uses_paths for name in ("transe", "transh", "transr", "ctransr"))
     for comp in ("add", "rnn"):
@@ -275,8 +274,8 @@ def test_epoch_runner_attaches_its_draws_path_data_and_never_takes_the_fused_pat
     assert data.paths.dtype == torch.int32 and data.path_conf.dtype == torch.float32
     cfg = EmbeddingConfig(embedding_size=8, num_batches=4, learning_rate=0.02)
     m = get_model("ptranse")
-    runner = step.make_epoch_runner(m, cfg, ts.num_triples // 4, 4)
-    assert not runner.fused and runner.chunk is None
+    runner = step.EpochRunner(m, cfg, ts.num_triples // 4, 4)
+    assert runner.chunk is None
     batches = runner.sample(torch.Generator().manual_seed(5), data)
     assert set(batches) == set(BATCH_KEYS)
     assert batches["paths"].shape == (4, ts.num_triples // 4, 4, 2) and batches["conf"].shape[2] == 4
@@ -301,8 +300,6 @@ def test_epoch_runner_attaches_its_draws_path_data_and_never_takes_the_fused_pat
     params = m.init_params(torch.Generator().manual_seed(1), ts.n_entities, ts.n_relations, cfg, "cpu")
     out, loss = runner(params, torch.Generator().manual_seed(5), data)
     assert calls == [set(BATCH_KEYS)] * 4 and torch.isfinite(loss) and set(out) == set(params)
-    with pytest.raises(ValueError, match="no fused-table update"):
-        step.make_epoch_runner(m, cfg, 10, 4, fused=True)
 
 
 def test_parity_mode_steps_carry_path_data_and_launch_no_kernel(tiny_kg_dir):
@@ -314,13 +311,12 @@ def test_parity_mode_steps_carry_path_data_and_launch_no_kernel(tiny_kg_dir):
     data = step.DeviceData.from_triple_set(ts, "cpu", path_store=store)
     batch = step.sample_batch(torch.Generator().manual_seed(1), data, cfg, 16)
     assert set(batch) == set(BATCH_KEYS)
-    for module in KERNEL_MODULES:
-        module.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     losses = []
     with pytest.warns(UserWarning, match="--update-mode parity has no effect for ptranse"):
         loop.train(m, cfg, ts, path_store=store, metrics_fn=lambda r: losses.append(r["loss"]), device="cpu")
     assert len(losses) == 2 and all(np.isfinite(losses))
-    assert all(not module.launch_counts for module in KERNEL_MODULES)
+    assert not cuda_build.launch_counts
 
 
 def test_loop_trains_ptranse_and_the_loss_falls(tiny_kg_dir):

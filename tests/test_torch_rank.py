@@ -16,7 +16,7 @@ from kb2e_tpu.eval import ranking as jax_ranking
 from kb2e_tpu.ops import pallas_rank as jax_pallas_rank
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.eval import ranking
-from kb2e_tpu_torch.ops import distances, rank_count
+from kb2e_tpu_torch.ops import cuda_build, distances, rank_count
 
 torch.set_num_threads(1)
 
@@ -117,10 +117,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     args = (torch.from_numpy(ent).T.contiguous(), torch.from_numpy(queries).T.contiguous(),
             distances.residual_energy(torch.from_numpy(ent[true_idx] - queries), Distance.L1),
             torch.from_numpy(true_idx), Distance.L1)
-    rank_count.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     np.testing.assert_array_equal(rank_count.rank_counts(*args).numpy(),
                                   rank_count.rank_counts_reference(*args).numpy())
-    assert sum(rank_count.launch_counts.values()) == 0
+    assert sum(cuda_build.launch_counts.values()) == 0
     # A device with neither a kernel nor a plain version is refused.
     with pytest.raises(ValueError, match="no kernel"):
         rank_count.rank_counts(*(a.to("meta") if torch.is_tensor(a) else a for a in args))

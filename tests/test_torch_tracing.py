@@ -100,8 +100,7 @@ def test_an_epoch_records_one_span_a_batch_or_chunk(tiny_kg_dir, name, mesh):
     cfg = EmbeddingConfig(embedding_size=8, num_batches=3)
     batch_size = step_lib.batch_size_for(ts.num_triples, 3)
     model = get_model(name)
-    runner = step_lib.make_epoch_runner(model, cfg, batch_size, 3,
-                                        mesh=mesh_lib.single_device_mesh("cpu") if mesh else None)
+    runner = step_lib.EpochRunner(model, cfg, batch_size, 3, mesh=mesh_lib.single_device_mesh("cpu") if mesh else None)
     params = model.init_params(torch.Generator().manual_seed(1), ts.n_entities, ts.n_relations, cfg, "cpu")
     with _recording():
         runner(params, torch.Generator().manual_seed(2), data)

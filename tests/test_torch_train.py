@@ -2,7 +2,8 @@
 
 The same numpy-seeded tables and injected batches go through both packages:
 the scatter-adds, the fast update (``batch_update``, ``fused_table_update``
-and the epoch runner) and the parity update, whose plain version (the CPU
+and the epoch runner, whose one-device loop equals every model's
+``batch_update`` batch by batch) and the parity update, whose plain version (the CPU
 side of the CUDA kernel K3) is held against JAX's scan path, against JAX's
 Pallas kernel in interpret mode and against the NumPy oracle.  Then the
 loop and the CLI train on ``tiny_kg_dir`` on the CPU.
@@ -37,7 +38,8 @@ from kb2e_tpu_torch.cli import eval_transe, train_transe
 from kb2e_tpu_torch.cli import train as train_cli
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.io import checkpoint
-from kb2e_tpu_torch.ops import scatter, transe_update
+from kb2e_tpu_torch.models import base
+from kb2e_tpu_torch.ops import cuda_build, scatter, transe_update
 from kb2e_tpu_torch.train import step as step_lib
 from kb2e_tpu_torch.utils import profiling
 
@@ -142,11 +144,11 @@ def test_fast_updates_equal_jax(distance, k_neg, scatter_mode):
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
 
     want_t, want_loss = jm.fused_table_update(jm.fuse_params(jparams), N_ENT, _jax_batch(arrays), jcfg)
-    got_t, loss = m.fused_table_update(m.fuse_params(tparams), N_ENT, _torch_batch(arrays), cfg)
+    got_t, loss = m.fused_table_update(base.fuse(tparams), N_ENT, _torch_batch(arrays), cfg)
     _close(got_t, want_t)
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     # The fused table is the two tables of batch_update.
-    for key, part in m.unfuse_params(got_t, N_ENT).items():
+    for key, part in base.unfuse(got_t, N_ENT).items():
         _close(part, want[key])
 
 
@@ -219,9 +221,9 @@ def test_parity_plain_version_equals_jax_scan_and_pallas_kernel(distance, self_l
     # The wrapper takes the plain version for CPU tensors and counts no launch;
     # the model's sequential_update reaches it through the wrapper under every
     # parity_impl.
-    transe_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     via_wrapper = transe_update.transe_sequential_update(*t, learning_rate=0.05, margin=1.0, l1=l1)
-    assert sum(transe_update.launch_counts.values()) == 0
+    assert sum(cuda_build.launch_counts.values()) == 0
     assert torch.equal(via_wrapper[3], viol)
     for impl in ("auto", "pallas", "scan"):
         p, l_ = get_model("transe").sequential_update(
@@ -304,8 +306,9 @@ def test_parity_mode_moves_bf16_tables_to_float32():
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
 def test_epoch_runner_on_injected_batches_equals_a_jax_scan(distance):
-    # Five batches of 24 through the port's runner, fused and not, and through
-    # a lax.scan of kb2e_tpu's fused_table_update: the same atol 1e-5.
+    # Five batches of 24 through the port's runner (its fused table) and
+    # through TransE.batch_update batch by batch, and through a lax.scan of
+    # kb2e_tpu's fused_table_update: the same atol 1e-5.
     k, n_batches, rows = 12, 5, 24
     ent, rel = _tables(12, k)
     per = [_batch_arrays(20 + i, rows) for i in range(n_batches)]
@@ -317,11 +320,10 @@ def test_epoch_runner_on_injected_batches_equals_a_jax_scan(distance):
         jm.fuse_params({"entity": jnp.asarray(ent), "relation": jnp.asarray(rel)}), _jax_batch(stacked),
     )
     want = jm.unfuse_params(table, N_ENT)
-    for fused in (True, False):
-        runner = step_lib.make_epoch_runner(get_model("transe"), cfg, rows, n_batches, fused=fused)
-        got, loss = runner.apply(
-            {"entity": torch.from_numpy(ent), "relation": torch.from_numpy(rel)}, _torch_batch(stacked), N_ENT
-        )
+    params, feed = {"entity": torch.from_numpy(ent), "relation": torch.from_numpy(rel)}, _torch_batch(stacked)
+    runner = step_lib.EpochRunner(get_model("transe"), cfg, rows, n_batches)
+    by_batch = _batch_by_batch(get_model("transe"), params, feed, cfg)
+    for got, loss in (runner.apply(params, feed, N_ENT), by_batch):
         for key in ("entity", "relation"):
             _close(got[key], want[key])
         assert float(loss) == pytest.approx(float(losses.sum()), rel=1e-5)
@@ -336,16 +338,44 @@ def test_epoch_runner_samples_whole_epochs(tiny_dataset):
     )
     data = step_lib.DeviceData.from_triple_set(ts, "cpu")
     cfg = EmbeddingConfig(embedding_size=8, num_negatives=2)
-    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, 30, 4)
+    runner = step_lib.EpochRunner(get_model("transe"), cfg, 30, 4)
     batches = runner.sample(torch.Generator().manual_seed(0), data)
     assert all(v.shape == (4, 60) for v in batches.values())
-    with pytest.raises(ValueError, match="fused"):
-        step_lib.make_epoch_runner(_NoFused(), cfg, 30, 4, fused=True)
 
 
-class _NoFused:
-    name = "nofused"
-    supports_fused_table = False
+def _batch_by_batch(model, params, feed, cfg):
+    """``model.batch_update`` over the feed's [n, rows] batches in turn."""
+    losses = []
+    for i in range(feed["ph"].shape[0]):
+        params, loss = model.batch_update(params, {key: v[i] for key, v in feed.items()}, cfg)
+        losses.append(loss)
+    return params, torch.stack(losses).sum()
+
+
+@pytest.mark.parametrize("n_batches", [1, 3])
+@pytest.mark.parametrize("name", ["transe", "transh", "transr", "ctransr", "ptranse"])
+def test_the_one_device_loop_equals_batch_update_batch_by_batch(tiny_kg_dir, name, n_batches):
+    # The runner's own feed (a chunked model's: its chunks) through its
+    # one-device loop, and through the model's batch_update a batch (a
+    # chunk) at a time: the same float32 tables and loss, bit for bit.
+    from kb2e_tpu_torch.data import paths, triples
+
+    ts, model = triples.load_dataset(tiny_kg_dir).train, get_model(name)
+    store = (paths.build_path_store(ts.heads, ts.tails, ts.rels, ts.n_relations, max_paths=4, use_native=False)
+             if model.uses_paths else None)
+    data = step_lib.DeviceData.from_triple_set(ts, "cpu", path_store=store)
+    cfg = EmbeddingConfig(embedding_size=8, learning_rate=0.05, num_batches=n_batches)
+    runner = step_lib.EpochRunner(model, cfg, step_lib.batch_size_for(ts.num_triples, n_batches), n_batches)
+    feed = runner.sample(torch.Generator().manual_seed(n_batches), data)
+    params = model.init_params(torch.Generator().manual_seed(4), ts.n_entities, ts.n_relations, cfg, "cpu")
+    if model.cluster_aware:
+        params["centers"] = torch.randn(params["centers"].shape, generator=torch.Generator().manual_seed(5)) / 4
+    got, loss = runner.apply(params, feed, ts.n_entities)
+    want, want_loss = _batch_by_batch(model, params, feed, cfg)
+    assert sorted(got) == sorted(params)
+    for key in params:
+        assert got[key].dtype == torch.float32 and torch.equal(got[key], want[key]), key
+    assert torch.equal(loss, want_loss) and float(loss) > 0
 
 
 def _runner_case(name, mesh=None):
@@ -356,7 +386,7 @@ def _runner_case(name, mesh=None):
     params = model.init_params(torch.Generator().manual_seed(3), N_ENT, N_REL, cfg, "cpu")
     per = [_batch_arrays(40 + i, rows) for i in range(3)]
     feed = _torch_batch(tuple(np.stack([p[j] for p in per]) for j in range(6)))
-    return step_lib.make_epoch_runner(model, cfg, rows, 3, mesh=mesh), params, feed
+    return step_lib.EpochRunner(model, cfg, rows, 3, mesh=mesh), params, feed
 
 
 @pytest.mark.parametrize("name", ["transe", "transr", "ctransr"])
@@ -399,33 +429,32 @@ def test_a_cpu_runner_counts_its_chunks_and_replays_none(mesh):
 
 
 def test_ctransr_runner_goes_through_its_own_batch_update(monkeypatch):
-    # On the CPU the chunks run eagerly, one ``batch_update`` call each,
-    # which applies CTransR's own in-place chunk (three pair groups, the
-    # clusters), never TransR's four-group one.
+    # On the CPU the chunks run eagerly, as CTransR's batch_update runs
+    # them: CTransR's own in-place chunk (three pair groups, the clusters)
+    # once a chunk, never TransR's four-group one.
     from kb2e_tpu_torch.models import ctransr, transr
 
     runner, params, feed = _runner_case("ctransr")
-    calls, chunks = [], []
-    own, chunk = ctransr.CTransR.batch_update, ctransr.CTransR.chunk_update_
-
-    def spy(self, params, batch, cfg):
-        calls.append(batch["ph"].shape[0])
-        return own(self, params, batch, cfg)
+    chunks = []
+    chunk = ctransr.CTransR.chunk_update_
 
     def spy_chunk(self, fused, tables, n_entities, one, cfg):
-        chunks.append(sorted(tables))
+        chunks.append((one["ph"].shape[0], sorted(tables)))
         return chunk(self, fused, tables, n_entities, one, cfg)
 
     def refuse(*args, **kwargs):
         raise AssertionError("CTransR went through TransR's chunk body")
 
-    monkeypatch.setattr(ctransr.CTransR, "batch_update", spy)
     monkeypatch.setattr(ctransr.CTransR, "chunk_update_", spy_chunk)
     monkeypatch.setattr(transr.TransR, "chunk_update_", refuse)
-    out, _ = runner.apply(params, feed, N_ENT)
-    assert calls == [16, 16, 16] and runner.model.supports_inplace_chunk
-    assert chunks == [["centers", "proj", "relation_c"]] * 3
+    out, loss = runner.apply(params, feed, N_ENT)
+    assert chunks == [(16, ["centers", "proj", "relation_c"])] * 3
     assert sorted(out) == sorted(params) and out["centers"] is params["centers"]
+    want, want_loss = _batch_by_batch(runner.model, params, feed, runner.cfg)
+    assert len(chunks) == 6
+    for key in params:
+        assert torch.equal(out[key], want[key]), key
+    assert torch.equal(loss, want_loss)
 
 
 # --- loop and CLI -----------------------------------------------------------------

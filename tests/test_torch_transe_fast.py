@@ -1,7 +1,7 @@
 """TransE's fast batch as hand-written CUDA kernels (``ops/transe_fast.py``)
 on the CPU: the wrapper on CPU tensors against ``TransE.fused_table_update``
-batch by batch, the epoch runner's choice of the kernel path, its counters,
-and the benchmark's reader of them.
+batch by batch, TransE's choice of the kernel path (``TransE.stepper``), its
+counters, and the benchmark's reader of them.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 On CPU tensors the wrapper runs ``fused_table_update`` in place on the
@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from kb2e_tpu_torch import EmbeddingConfig, get_model
 from kb2e_tpu_torch.constants import Distance
+from kb2e_tpu_torch.models import base, transe
 from kb2e_tpu_torch.ops import transe_fast
 from kb2e_tpu_torch.parallel import mesh as mesh_lib
 from kb2e_tpu_torch.train import step as step_lib
@@ -67,11 +68,20 @@ def _cfg(distance, k, k_neg=1, **kw):
 def _plain(params, feed, cfg):
     """``fused_table_update`` over the feed's batches in turn."""
     model = get_model("transe")
-    table, losses = model.fuse_params(params), []
+    table, losses = base.fuse(params), []
     for i in range(feed["ph"].shape[0]):
         table, loss = model.fused_table_update(table, N_ENT, {key: v[i] for key, v in feed.items()}, cfg)
         losses.append(loss)
-    return model.unfuse_params(table, N_ENT), torch.stack(losses)
+    return base.unfuse(table, N_ENT), torch.stack(losses)
+
+
+def _wrapper(params, feed, cfg):
+    """The kernels' wrapper, as ``TransE.stepper`` makes it, over CPU tensors."""
+    model = get_model("transe")
+    return transe_fast.FusedBatches(
+        base.fuse(params), N_ENT, feed, learning_rate=cfg.learning_rate, margin=cfg.margin,
+        l1=cfg.distance == int(Distance.L1), group=max(1, cfg.num_negatives),
+        plain=lambda t, batch: model.fused_table_update(t, N_ENT, batch, cfg))
 
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
@@ -82,12 +92,10 @@ def test_the_wrapper_on_cpu_tensors_equals_fused_table_update(distance, k_neg, d
     cfg, params = _cfg(distance, k, k_neg), _tables(3 + k_neg, k, dyadic)
     feed = _feed(5 + int(distance), 4, 24 // k_neg if k_neg > 1 else 24, k_neg)
     want, want_losses = _plain(params, feed, cfg)
-    model = get_model("transe")
-    table = model.fuse_params(params)
-    run = model.fused_table_kernel(table, N_ENT, feed, cfg)
+    run = _wrapper(params, feed, cfg)
     for i in range(feed["ph"].shape[0]):
         run(i)
-    got = model.unfuse_params(table, N_ENT)
+    got = run.params()
     assert not torch.equal(got["entity"], params["entity"]) and float(want_losses.sum()) > 0
     for key in got:
         assert torch.equal(got[key], want[key]), key
@@ -101,10 +109,9 @@ def test_rows_above_norm_one_that_no_sample_touches_are_ball_normed_as_the_plain
     for key in ("ph", "pt", "nh", "nt"):
         feed[key] %= N_ENT - 5
     want, _ = _plain(params, feed, cfg)
-    model = get_model("transe")
-    table = model.fuse_params(params)
-    model.fused_table_kernel(table, N_ENT, feed, cfg)(0)
-    got = model.unfuse_params(table, N_ENT)
+    run = _wrapper(params, feed, cfg)
+    run(0)
+    got = run.params()
     assert torch.allclose(got["entity"][N_ENT - 5:].norm(dim=1), torch.ones(5))
     for key in got:
         assert torch.equal(got[key], want[key]), key
@@ -113,7 +120,7 @@ def test_rows_above_norm_one_that_no_sample_touches_are_ball_normed_as_the_plain
 def test_the_wrapper_refuses_what_it_does_not_take():
     params, feed = _tables(1, 8, False), _feed(2, 2, 8, 1)
     model, cfg = get_model("transe"), _cfg(Distance.L1, 8)
-    table = model.fuse_params(params)
+    table = base.fuse(params)
     kw = dict(learning_rate=0.01, margin=1.0, l1=True,
               plain=lambda t, batch: model.fused_table_update(t, N_ENT, batch, cfg))
     with pytest.raises(ValueError, match="no kernel"):
@@ -141,7 +148,7 @@ def test_the_kernels_build_through_the_shared_nvcc_helper(tmp_path, monkeypatch)
     assert so.parent == tmp_path / "kernels" and so.name.startswith("transe_fast_") and so.suffix == ".so"
 
 
-# --- the epoch runner's choice --------------------------------------------------
+# --- TransE's choice ------------------------------------------------------------
 
 
 def _stand_in(device, dtype=torch.float32, shape=(N_ENT, 8)):
@@ -157,7 +164,7 @@ def _stand_in(device, dtype=torch.float32, shape=(N_ENT, 8)):
     ("transe", ("cuda:0", "cuda:1"), {}, False),
     ("transe", ("cuda:0", "cuda:0"), {"dtype": torch.bfloat16}, False),
     ("transe", ("cuda:0", "cuda:0"), {"scatter_mode": "dedup"}, False),
-    ("transe", ("cuda:0", "cuda:0"), {"fused": False}, False),
+    ("transe", ("cuda:0", "cuda:0"), {"relation_dtype": torch.bfloat16}, False),
     ("transe", ("cuda:0", "cuda:0"), {"mesh": True}, False),
     ("transr", ("cuda:0", "cuda:0"), {}, False),
     ("transe", ("cuda:0", "cuda:0"), {"k": 1024}, True),
@@ -165,17 +172,29 @@ def _stand_in(device, dtype=torch.float32, shape=(N_ENT, 8)):
     ("transe", ("cuda:0", "cuda:0"), {"rows": 4_294_967}, True),
     ("transe", ("cuda:0", "cuda:0"), {"rows": 4_294_968}, False),  # 5·rows·k deltas past 32 bits
 ])
-def test_the_runner_takes_the_kernels_only_for_float32_tables_on_one_card_direct_and_no_mesh(name, tables, kw, want):
+def test_the_runner_takes_the_kernels_only_for_float32_tables_on_one_card_direct_and_no_mesh(
+        monkeypatch, name, tables, kw, want):
+    # TransE's stepper decides (transe.kernels_take); a runner over a mesh,
+    # and any other model, never asks it.
     k, rows = kw.get("k", 100), kw.get("rows", 16)
     cfg = _cfg(Distance.L1, k, scatter_mode=kw.get("scatter_mode", "direct"))
-    mesh = mesh_lib.single_device_mesh("cpu") if kw.get("mesh") else None
-    runner = step_lib.make_epoch_runner(get_model(name), cfg, 16, 3, fused=kw.get("fused"), mesh=mesh)
-    dtype = kw.get("dtype", torch.float32)
-    params = {key: _stand_in(dev, dtype, (n, k)) for key, dev, n in zip(("entity", "relation"), tables, (N_ENT, N_REL))}
-    assert runner.takes_batch_kernel(params, rows) is want
+    dtypes = kw.get("dtype", torch.float32), kw.get("relation_dtype", kw.get("dtype", torch.float32))
+    params = {key: _stand_in(dev, dtype, (n, k))
+              for key, dev, dtype, n in zip(("entity", "relation"), tables, dtypes, (N_ENT, N_REL))}
     real = _tables(0, 8, False)
-    assert runner.takes_batch_kernel(real, rows) is False
-    assert runner.takes_batch_kernel({key: v.to("meta") for key, v in real.items()}, rows) is False
+    assert transe.kernels_take(real, rows, cfg) is False
+    assert transe.kernels_take({key: v.to("meta") for key, v in real.items()}, rows, cfg) is False
+    if name == "transe" and not kw.get("mesh"):
+        assert transe.kernels_take(params, rows, cfg) is want
+        return
+    asked = []
+    monkeypatch.setattr(transe, "kernels_take", lambda *args: asked.append(args) or True)
+    model, cfg = get_model(name), _cfg(Distance.L1, 8)
+    mesh = mesh_lib.single_device_mesh("cpu") if kw.get("mesh") else None
+    runner = step_lib.EpochRunner(model, cfg, 16, 3, mesh=mesh)
+    runner.apply(model.init_params(torch.Generator().manual_seed(1), N_ENT, N_REL, cfg, "cpu"), _feed(2, 3, 16, 1),
+                 N_ENT)
+    assert asked == [] and want is False
 
 
 @pytest.mark.parametrize("k, rows, want", [
@@ -184,8 +203,6 @@ def test_the_runner_takes_the_kernels_only_for_float32_tables_on_one_card_direct
 ])
 def test_the_kernels_take_widths_up_to_max_k_and_batches_of_deltas_under_2_to_the_31(k, rows, want):
     assert transe_fast.takes(k, rows) is want
-    assert get_model("transe").takes_fused_table_kernel(k, rows) is want
-    assert get_model("transr").takes_fused_table_kernel(k, rows) is False
 
 
 def _apply_traced(runner, params, feed):
@@ -204,8 +221,8 @@ def test_a_fused_runner_counts_its_batches_and_those_the_kernels_ran(monkeypatch
     # the plain version: the runner's loop, counters and spans are those of
     # the card.
     cfg, params, feed = _cfg(Distance.L2, 8), _tables(4, 8, False), _feed(6, 3, 16, 1)
-    runner = step_lib.make_epoch_runner(get_model("transe"), cfg, 16, 3)
-    monkeypatch.setattr(step_lib.EpochRunner, "takes_batch_kernel", lambda self, p, rows: kernel)
+    runner = step_lib.EpochRunner(get_model("transe"), cfg, 16, 3)
+    monkeypatch.setattr(transe, "kernels_take", lambda p, rows, c: kernel)
     before = {key: v.clone() for key, v in params.items()}
     (got, loss), snap = _apply_traced(runner, params, feed)
     assert snap["counters"]["train.batches"] == 3
@@ -219,7 +236,7 @@ def test_a_fused_runner_counts_its_batches_and_those_the_kernels_ran(monkeypatch
 
 
 def test_a_chunked_runner_counts_no_batches():
-    runner = step_lib.make_epoch_runner(get_model("transr"), _cfg(Distance.L1, 8), 16, 3)
+    runner = step_lib.EpochRunner(get_model("transr"), _cfg(Distance.L1, 8), 16, 3)
     params = get_model("transr").init_params(torch.Generator().manual_seed(1), N_ENT, N_REL, _cfg(Distance.L1, 8),
                                              "cpu")
     _, snap = _apply_traced(runner, params, _feed(7, 3, 16, 1))

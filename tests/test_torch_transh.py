@@ -43,7 +43,7 @@ from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.convert import params_from_numpy, params_to_numpy
 from kb2e_tpu_torch.data import triples
 from kb2e_tpu_torch.eval import harness
-from kb2e_tpu_torch.ops import projections, transh_update
+from kb2e_tpu_torch.ops import cuda_build, projections, transh_update
 from kb2e_tpu_torch.utils import prng
 
 import oracle
@@ -269,9 +269,9 @@ def test_parity_update_goes_through_the_wrapper_under_every_impl():
     ent, rel, w = _tables(12, k)
     arrays = _batch_arrays(13, 24, self_loops=True)
     t = [torch.from_numpy(a) for a in (ent, rel, w, *arrays)]
-    transh_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     via_wrapper = transh_update.transh_sequential_update(*t, learning_rate=0.05, margin=1.0, max_iters=16)
-    assert sum(transh_update.launch_counts.values()) == 0  # CPU tensors: the plain version
+    assert sum(cuda_build.launch_counts.values()) == 0  # CPU tensors: the plain version
     params = dict(zip(KEYS, t[:3]))
     cfg = EmbeddingConfig(embedding_size=k, learning_rate=0.05, margin=1.0, update_mode="parity")
     for impl in ("auto", "pallas", "scan"):

@@ -44,7 +44,7 @@ from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.convert import params_from_numpy, params_to_numpy
 from kb2e_tpu_torch.data import triples
 from kb2e_tpu_torch.eval import harness
-from kb2e_tpu_torch.ops import transr_update
+from kb2e_tpu_torch.ops import cuda_build, transr_update
 from kb2e_tpu_torch.train import step as step_lib
 
 import oracle
@@ -291,8 +291,8 @@ def test_chunked_epoch_runner_applies_the_chunks_in_order_as_jax(monkeypatch):
     monkeypatch.setattr(m, "chunk_size", chunk)
     ent, rel, w = _tables(7, k)
     jcfg, cfg = _cfgs(k)
-    runner = step_lib.make_epoch_runner(m, cfg, 20, 3)
-    assert not runner.fused and runner.chunk == chunk
+    runner = step_lib.EpochRunner(m, cfg, 20, 3)
+    assert runner.chunk == chunk
     arrays = _batch_arrays(8, 60)
     padded = [np.concatenate([a, np.zeros(4, a.dtype)]).reshape(4, chunk) for a in arrays]
     got, loss = runner.apply(params_from_numpy(_host(ent, rel, w), "cpu"),
@@ -305,7 +305,7 @@ def test_chunked_epoch_runner_applies_the_chunks_in_order_as_jax(monkeypatch):
         _close(got[key], jparams[key])
     assert float(loss) == pytest.approx(sum(losses), rel=1e-5)
     # A runner never chunks coarser than the batch.
-    assert step_lib.make_epoch_runner(get_model("transr"), cfg.replace(num_negatives=2), 5, 3).chunk == 10
+    assert step_lib.EpochRunner(get_model("transr"), cfg.replace(num_negatives=2), 5, 3).chunk == 10
 
 
 def test_chunked_epoch_runner_samples_whole_chunks_with_invalid_padding(tiny_kg_dir):
@@ -313,7 +313,7 @@ def test_chunked_epoch_runner_samples_whole_chunks_with_invalid_padding(tiny_kg_
     data = step_lib.DeviceData.from_triple_set(ts, "cpu")
     cfg = EmbeddingConfig(embedding_size=8, num_batches=3)
     batch_size = step_lib.batch_size_for(ts.num_triples, 3)
-    runner = step_lib.make_epoch_runner(get_model("transr"), cfg, batch_size, 3)
+    runner = step_lib.EpochRunner(get_model("transr"), cfg, batch_size, 3)
     batches = runner.sample(torch.Generator().manual_seed(0), data)
     total, chunk = 3 * batch_size, min(256, batch_size)
     n_chunks = -(-total // chunk)
@@ -376,10 +376,10 @@ def test_parity_update_goes_through_the_wrapper_under_every_impl():
     ent, rel, w = _tables(12, k)
     arrays = _batch_arrays(13, 16, self_loops=True)
     t = [torch.from_numpy(a) for a in (ent, rel, w, *arrays)]
-    transr_update.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     via_wrapper = transr_update.transr_sequential_update(*t, learning_rate=0.05, margin=1.0, l1=False,
                                                          max_iters=16)
-    assert sum(transr_update.launch_counts.values()) == 0  # CPU tensors: the plain version
+    assert sum(cuda_build.launch_counts.values()) == 0  # CPU tensors: the plain version
     params = dict(zip(KEYS, t[:3]))
     cfg = EmbeddingConfig(embedding_size=k, learning_rate=0.05, margin=1.0, update_mode="parity", distance=1)
     for impl in ("auto", "pallas", "scan"):
