@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --rank-count-only   # phases 1-2, the rank count's checks and timing
     python3 chip_smoke.py --ranking-alone     # phases 1-2, harness.rank_all timed alone
+    python3 chip_smoke.py --transr-fast-only  # phases 1-2, TransR's fast-chunk kernels checked and timed
     python3 chip_smoke.py --distributed-only  # phases 1-2, the data, the distributed phase
     python3 chip_smoke.py --nccl-cards        # the same over NCCL on every card of a host (2 or more)
     python3 chip_smoke.py --quality-scale [model ...]  # phases 1-2 and the scale-quality cells of the models
@@ -194,7 +195,11 @@ non-zero exit on any failure:
               fast batch a batch over a sampler epoch at K = 1 and 8: the
               wrapper on CUDA events, the device time by kernel,
               ``fused_table_update`` on the same batches and the bound from
-              ``portbench/reference/transe.py::update_work``.  Then
+              ``portbench/reference/transe.py::update_work``.  TransR's
+              fast chunk (``ops/transr_fast.py``) at the transr-fb15k.train
+              cell's shape (``transr_fast_timing``: bit for bit on dyadic
+              chunks first, then the device time a chunk and by phase, the
+              host's, ``ChunkGraph`` and the bound).  Then
               CTransR's fast epoch (the loop's walls, the breakdown on its
               trained tables), its clustered eval, relation prediction and
               the loader, and PTransE's fast epoch (the breakdown on its
@@ -588,13 +593,25 @@ def update_kernel_checks(tables, data, skewed):
 FAST_NEGATIVES = (1, 8)
 
 
-def fast_batch_launches(model: str, n_batches: int) -> dict:
-    """The launch counts of ``n_batches`` batches of ``model``'s fast epoch on
-    the card: for TransE (float32 tables) the three kernels of its fast batch
-    (``ops/transe_fast.py``) once a batch each; no other model launches one."""
-    from kb2e_tpu_torch.ops import transe_fast
+def fast_batch_launches(model: str, n_batches: int, data_dir: str = None, epochs: int = 1, k_neg: int = 1) -> dict:
+    """The launch counts of ``model``'s fast epochs on the card (float32
+    tables): for TransE the three kernels of its fast batch
+    (``ops/transe_fast.py``) once each of ``n_batches`` batches; for TransR
+    its chunk kernel (``ops/transr_fast.py``) once a run of up to
+    ``transr_fast.RUN`` chunks, over ``epochs`` epochs of ``n_batches``
+    batches of ``data_dir``'s train split (``k_neg`` rows a positive); no
+    other model launches one (CTransR replays its chunk as a CUDA graph)."""
+    from kb2e_tpu_torch import get_model
+    from kb2e_tpu_torch.data.triples import load_dataset
+    from kb2e_tpu_torch.ops import transe_fast, transr_fast
 
-    return {name: n_batches for name in transe_fast.KERNEL_NAMES} if model == "transe" else {}
+    if model == "transe":
+        return {name: n_batches for name in transe_fast.KERNEL_NAMES}
+    if model != "transr":
+        return {}
+    rows = max(1, load_dataset(data_dir).train.num_triples // n_batches) * max(1, k_neg)
+    chunks = -(-n_batches * rows // min(get_model("transr").chunk_size, rows))
+    return {name: epochs * -(-chunks // transr_fast.RUN) for name in transr_fast.KERNEL_NAMES}
 
 
 def fast_epoch_feed(data, k_neg: int):
@@ -1192,7 +1209,8 @@ def transr_training_paths(work: str, data_dir: str):
     seed = ["--seeddatadir", os.path.join(work, "trained_fast"), "--seedmethod", "1"]
     out = os.path.join(work, "transr_fast")
     fast, _ = train_run(["--datadir", data_dir, "--outdir", out, *TRAIN_FLAGS, "--epochs", "2", *seed],
-                        os.path.join(work, "transr_fast.jsonl"), {},
+                        os.path.join(work, "transr_fast.jsonl"),
+                        fast_batch_launches("transr", N_BATCHES, data_dir, epochs=2),
                         "train_transr fast, 2 epochs (warm start: train_transe's fast files)", model="transr")
     check(fast[1]["loss"] < fast[0]["loss"], "the TransR fast loss does not fall")
     for name in ("entity2vec.bern", "relation2vec.bern", "weights.bern", "embedding_meta.json"):
@@ -1232,7 +1250,8 @@ def quality_path(work: str, model: str, bands: dict, parity_kernel, reference: s
     eval_expect = {} if m.cluster_aware else {rank_count.KERNEL_NAMES[Distance.L1]: eval_launches(kg, m.needs_projection)}
     parity_expect = {} if parity_kernel is None else {parity_kernel: QUALITY_BATCHES * QUALITY_EPOCHS}
     hits = {}
-    fast_expect = fast_batch_launches(model, QUALITY_BATCHES * QUALITY_EPOCHS)
+    fast_expect = (fast_batch_launches(model, QUALITY_BATCHES, kg, epochs=QUALITY_EPOCHS) if model == "transr" else
+                   fast_batch_launches(model, QUALITY_BATCHES * QUALITY_EPOCHS))
     for mode, expect in (("fast", fast_expect), ("parity", parity_expect)):
         out = os.path.join(work, f"planted_{model}_{mode}")
         with warnings.catch_warnings(record=True) as caught:
@@ -1791,10 +1810,11 @@ def scale_cell(work: str, kg: str, card: str, cell) -> dict:
     argv = ["--datadir", kg, "--outdir", out, *SCALE_FLAGS, "--negatives", str(k_neg), "--rate", rate]
     if warm:
         argv += ["--seeddatadir", os.path.join(work, "scale_transe_k1"), "--seedmethod", "1"]
+    expect = (fast_batch_launches(model_name, N_BATCHES, kg, epochs=SCALE_EPOCHS, k_neg=k_neg)
+              if model_name == "transr" else fast_batch_launches(model_name, SCALE_EPOCHS * N_BATCHES))
     t0 = time.perf_counter()
     with timed_build_centers() as centers_s:
-        records, _ = train_run(argv, os.path.join(work, f"scale_{model_name}_k{k_neg}.jsonl"),
-                               fast_batch_launches(model_name, SCALE_EPOCHS * N_BATCHES),
+        records, _ = train_run(argv, os.path.join(work, f"scale_{model_name}_k{k_neg}.jsonl"), expect,
                                f"scale {what}, {SCALE_EPOCHS} epochs", model=model_name)
     train_s = time.perf_counter() - t0
     check(len(records) == SCALE_EPOCHS, f"scale {what}: {len(records)} epochs")
@@ -2932,6 +2952,174 @@ def transe_fast_timing(ctx, results):
     return records
 
 
+def transr_fast_timing():
+    """TransR's fast chunk as the kernels of ``ops/transr_fast.py`` at the
+    ``transr-fb15k.train`` cell's shape: the cell's graph (``portbench``'s
+    generator, seed SEED), one epoch of the port's sampler under the cell's
+    configuration (1,888 chunks of 256, N 14,951, R 1,345, k = d = 50, L1,
+    lr 0.001), TransR-init tables.  First the kernels against
+    ``chunk_update_`` bit for bit on dyadic chunks (L1 and L2, k 50;
+    ``tests/test_torch_transr_fast.py``'s cycles, which make every sum of a
+    chunk exact) with one launch a run.  Then, at the cell's N, R, k and
+    chunk of 256 on its TransR-init tables, against ``chunk_update_`` from
+    the same start tables on the same feed: bit for bit on 4 chunks whose
+    rows and matrices each take at most one step (``_distinct_feed``, L1 and
+    L2: the steps do not cancel, and every sum but the dot products is exact
+    in any order, which the kernel adds as cuBLAS does at k 50; the losses,
+    summed in another order, within 1e-6 relative), and within
+    ``RANDOM_ATOL`` on the first 8 chunks of the sampler's epoch, the
+    largest difference the record's ``max_abs_err``.  Then per chunk over the epoch: the
+    device time on CUDA events (median of 3 epochs) and per phase from the
+    kernel's clock (medians), the host's time to queue a chunk, the plain
+    version (``ChunkGraph``'s replays of the same epoch), the bound of
+    ``portbench/roofline.py`` over ``reference/transr.py::update_work``, and
+    ptxas's registers and spills."""
+    from kb2e_tpu_torch import EmbeddingConfig, get_model
+    from kb2e_tpu_torch.constants import Distance, Method
+    from kb2e_tpu_torch.data.triples import TripleSet
+    from kb2e_tpu_torch.models import transr
+    from kb2e_tpu_torch.ops import cuda_build, transr_fast
+    from kb2e_tpu_torch.train import step
+    from portbench import roofline, spec
+    from portbench.data import graph as graph_lib
+    from portbench.reference import transr as ref_transr
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_transr_fast as cases  # the dyadic cycles
+
+    model, dev = get_model("transr"), torch.device("cuda")
+    for distance in (Distance.L1, Distance.L2):
+        n, n_rel, k, chunk = 3000, 700, 50, 64
+        host = cases._dyadic_tables(n, n_rel, k, seed=SEED + int(distance))
+        feed = {key: v.to(dev) for key, v in cases._cycle_feed(6, chunk, n, n_rel, SEED + 2 + int(distance)).items()}
+        params, cfg = {key: v.to(dev) for key, v in host.items()}, cases._cfg(distance, k)
+        want, want_loss = cases._eager(params, feed, cfg)
+        reset_all_launch_counts()
+        got, loss = cases._kernels(params, feed, cfg)
+        torch.cuda.synchronize()
+        launches = all_launch_counts()
+        check(launches == {name: 1 for name in transr_fast.KERNEL_NAMES}, f"transr_fast dyadic: launches {launches}")
+        for key in want:
+            check(torch.equal(got[key], want[key]), f"transr_fast {distance.name} dyadic: {key} apart from "
+                  f"chunk_update_ in {int((got[key] != want[key]).sum())} elements")
+        check(torch.equal(loss, want_loss), f"transr_fast {distance.name} dyadic: loss {loss} against {want_loss}")
+        print(f"[kernels] transr_fast {distance.name} k={k}: 6 dyadic chunks of {chunk} (one all invalid) bit for bit "
+              f"with chunk_update_, one launch; loss {float(loss.sum()):.4f}", flush=True)
+
+    cell = spec.load("transr-fb15k.train")
+    g, emb = cell.config["graph"], dict(cell.config["embedding"])
+    emb["method"], emb["distance"] = Method.from_any(emb["method"]), Distance.from_any(emb["distance"])
+    cfg = EmbeddingConfig(**emb, seed=SEED)
+    n_ent, n_rel, k = int(g["n_entities"]), int(g["n_relations"]), cfg.embedding_size
+    graph = graph_lib.generate(g, SEED)
+    ts = TripleSet.from_arrays(*graph["train"], n_ent, n_rel)
+    data = step.DeviceData.from_triple_set(ts, dev)
+    runner = step.EpochRunner(model, cfg, step.batch_size_for(ts.num_triples, cfg.num_batches), cfg.num_batches)
+    feed = runner.sample(torch.Generator(device=dev).manual_seed(SEED), data)
+    n_chunks, rows = feed["ph"].shape
+    params = model.init_params(torch.Generator().manual_seed(SEED), n_ent, n_rel, cfg, dev)
+
+    for distance in (Distance.L1, Distance.L2):
+        one = cfg.replace(distance=distance)
+        distinct = cases._distinct_feed(4, rows, n_ent, n_rel, SEED + 4 + int(distance), dev)
+        want, want_loss = cases._eager(params, distinct, one)
+        got, loss = cases._kernels(params, distinct, one)
+        for key in want:
+            check(torch.equal(got[key], want[key]), f"transr_fast {distance.name} distinct chunks at the cell's shape: "
+                  f"{key} apart from chunk_update_ in {int((got[key] != want[key]).sum())} elements, by at most "
+                  f"{float((got[key] - want[key]).abs().max()):.3e}")
+            check(not torch.equal(got[key], params[key]),
+                  f"transr_fast {distance.name} distinct chunks: {key} unchanged")
+        loss_rel = float(((loss - want_loss).abs() / want_loss.abs()).max())  # summed in another order
+        check(loss_rel <= 1e-6, f"transr_fast {distance.name} distinct chunks: losses apart from chunk_update_'s by "
+              f"{loss_rel:.3e}")
+        print(f"[kernels] transr_fast {distance.name} at the cell's shape (N={n_ent} R={n_rel} k={k}): 4 chunks of "
+              f"{rows} with no row stepped twice, TransR-init tables, bit for bit with chunk_update_; losses "
+              f"within {loss_rel:.3e}", flush=True)
+    first = {key: v[:8] for key, v in feed.items()}
+    want, want_loss = cases._eager(params, first, cfg)
+    got, loss = cases._kernels(params, first, cfg)
+    errs = {key: float((got[key] - want[key]).abs().max()) for key in want}
+    worst = max(errs.values())
+    check(worst <= cases.RANDOM_ATOL, f"transr_fast: the epoch's first 8 chunks apart from chunk_update_ by {errs}, "
+          f"over {cases.RANDOM_ATOL}")
+    check(all(not torch.equal(got[key], params[key]) for key in want), "transr_fast: the first 8 chunks wrote nothing")
+    loss_rel = float(((loss - want_loss).abs() / want_loss.abs().clamp(min=1e-30)).max())
+    check(loss_rel <= 1e-6, f"transr_fast: the first 8 chunks' losses apart from chunk_update_'s by {loss_rel:.3e}")
+    print(f"[kernels] transr_fast L1 at the cell's shape: the sampler's first 8 chunks of {rows}, TransR-init tables, "
+          f"within {worst:.3e} of chunk_update_ (" + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+          + f"; limit {cases.RANDOM_ATOL}), losses within {loss_rel:.3e}", flush=True)
+
+    def epoch_ms(make, reps=3):
+        times = []
+        for _ in range(reps):
+            steps = make()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for i in range(n_chunks):
+                steps(i)
+            steps.params()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return float(np.median(times)) / n_chunks
+
+    reset_all_launch_counts()
+    ms = epoch_ms(lambda: model.kernel_chunks(params, feed, cfg))
+    launches = all_launch_counts()
+    runs = 3 * -(-n_chunks // transr_fast.RUN)
+    check(launches == {name: runs for name in transr_fast.KERNEL_NAMES}, f"transr_fast timing: launches {launches}, "
+          f"expected {runs}")
+    steps = model.kernel_chunks(params, feed, cfg)
+    steps.stamps = torch.zeros(n_chunks, 5, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_chunks):
+        steps(i)
+    host_us = (time.perf_counter() - t0) * 1e6 / n_chunks
+    steps.params()
+    torch.cuda.synchronize()
+    st = steps.stamps.double().cpu()
+    phase_us = [float(x) for x in ((st[:, 1:] - st[:, :-1]) / 1e3).median(0).values]
+    chunk_us = float(((st[:, 4] - st[:, 0]) / 1e3).median())
+    graph = transr.ChunkGraph(model, cfg, params, rows)
+    plain_ms = epoch_ms(lambda: graph.load(params, feed))
+    work = ref_transr.update_work(k, {key: v.cpu() for key, v in feed.items()})
+    b_ms = 1e3 * roofline.least_seconds_sum(work) / n_chunks
+    b_by = "bytes" if sum(nb / roofline.HBM_BYTES_PER_S for _, nb in work) >= sum(
+        op / roofline.FP32_FLOPS for op, _ in work) else "operations"
+    log = cuda_build.library_path(transr_fast.SOURCE).with_suffix(".log").read_text()
+    ptxas = "; ".join(f"{'L1' if 'ILb1E' in name else 'L2'} {regs} registers, {spill} bytes spilled"
+                      for name, spill, regs in re.findall(
+                          r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?Used (\d+) registers", log,
+                          re.S))
+    print(f"[timing] transr_fast L1 at transr-fb15k.train's shape ({n_chunks} chunks of {rows}, N={n_ent} R={n_rel} "
+          f"k={k}), {card_line()}: {ms * 1e3:.2f} us a chunk on CUDA events over an epoch (median of 3; one launch "
+          f"of {steps.blocks} blocks a run of {transr_fast.RUN}); by the kernel's clock {chunk_us:.2f} us a chunk, "
+          "phases "
+          + ", ".join(f"{name} {v:.2f}" for name, v in zip(("score", "steps and norms", "ball step", "ball adds"),
+                                                            phase_us))
+          + f" us; host {host_us:.2f} us to queue a chunk; plain ChunkGraph {plain_ms * 1e3:.2f} us a chunk; bound "
+          f"{b_ms * 1e3:.3f} us ({b_by}, update_work): {ms / b_ms:.1f} times the bound; ptxas {ptxas}", flush=True)
+    return {
+        "name": "transr_fast L1",
+        "route": "cuda",
+        "source": "kb2e_tpu_torch/csrc/transr_fast.cu",
+        "replaces": None,
+        "launches": runs,
+        "max_abs_err": worst,
+        "ms": ms,
+        "device_ms": chunk_us / 1e3,
+        "device_ms_by_phase": dict(zip(("score", "steps_and_norms", "ball_step", "ball_adds"),
+                                       [v / 1e3 for v in phase_us])),
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def bare_launcher(args):
     """The rank count's bare launch on buffers allocated once: the tables in
     the harness's aligned layout, ``e_sq`` and ``q_sq`` given, and ``out``
@@ -3285,6 +3473,8 @@ def timing_phase(tables, ctx, results):
     took("the TransE update timing")
     records += transe_fast_timing(ctx, results)
     took("the TransE fast-batch timing")
+    records.append(transr_fast_timing())
+    took("the TransR fast-chunk timing")
     fast = results["fast"]
     print(f"[timing] train_transe fast at bench.py's configuration: epoch walls "
           + ", ".join(f"{r['wall_s']:.3f} s ({r['triples_per_s']:.0f} triples/s)" for r in fast), flush=True)
@@ -3340,6 +3530,12 @@ def main() -> int:
         tables = init_tables("transe", torch.device("cuda"))
         ctx = phase("kernels", lambda: dict(rank_worst=rank_kernel_checks(tables)))
         records = phase("timing", rank_count_timing, tables, ctx, None)
+        print(card)
+        print(json.dumps({"kernels": records}))
+        return 0
+    if sys.argv[1:] == ["--transr-fast-only"]:
+        # TransR's fast-chunk kernels alone: their checks and timing.
+        records = [phase("timing", transr_fast_timing)]
         print(card)
         print(json.dumps({"kernels": records}))
         return 0

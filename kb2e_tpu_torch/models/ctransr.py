@@ -122,7 +122,10 @@ class CTransR(transr.TransR):
     # fast update, and K5 (TransR's kernel) never sees a CTransR batch.
     has_parity_mode = False
     # TransR's ``batch_update`` and ``stepper`` over this chunk
-    # (``chunk_update_``), replayed as a CUDA graph on one card, as TransR's.
+    # (``chunk_update_``), replayed as a CUDA graph on one card: TransR's
+    # kernel (ops/transr_fast.py) takes its four-pair chunk, not this one's
+    # routing, cluster rows, regulariser and three-pair step.
+    chunk_kernels = False
     chunk_tables = ("proj", "relation_c")
     chunk_inputs = ("centers",)
     chunk_counters = ("ctransr.routed", "ctransr.routed_top")

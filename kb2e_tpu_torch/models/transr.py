@@ -25,8 +25,9 @@ applied ``chunk_size`` samples at a time, each chunk from its own start
 snapshot, with one masked iteration of the coupled ‖a·W‖ ≤ 1 descent on the
 touched pairs.  A chunk runs in place on a fused [N+R, k] table and W
 (``chunk_update_``, whose stages CTransR's chunk shares); on one card the
-epoch's chunks replay it as a CUDA graph (:meth:`TransR.stepper`,
-:class:`ChunkGraph`).  Parity mode
+epoch's chunks run as the hand-written kernel of ``ops/transr_fast.py``
+(:meth:`TransR.stepper`), or, for CTransR's chunk, replay it as a CUDA graph
+(:class:`ChunkGraph`).  Parity mode
 (``sequential_update``) replays the exact per-sample sequence through the
 hand-written kernel of ``ops/transr_update.py`` on the card.
 """
@@ -41,7 +42,7 @@ import torch
 from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import base
-from kb2e_tpu_torch.ops import distances, projections, scatter, transr_update
+from kb2e_tpu_torch.ops import distances, projections, scatter, transr_fast, transr_update
 from kb2e_tpu_torch.utils import profiling, prng
 
 
@@ -123,6 +124,10 @@ class TransR(base.Model):
     # The chunk of the fast update, and the mini-batch the epoch runner feeds
     # it (train/step.py); the JAX package's measured optimum.
     chunk_size = 256
+    # Whether the one-card fast chunk may run as ``ops/transr_fast.py``'s
+    # kernel, which computes TransR's ``chunk_update_``; a model whose chunk
+    # differs replays it as a CUDA graph (:class:`ChunkGraph`).
+    chunk_kernels = True
     # The params besides ``entity`` and ``relation`` that ``chunk_update_``
     # takes in its ``tables``: those it writes in place, then those it only
     # reads; and the device counters it keeps in a count buffer
@@ -181,20 +186,27 @@ class TransR(base.Model):
 
     def stepper(self, params, feed: base.Batch, cfg: EmbeddingConfig, kept=None):
         """The fast epoch over ``feed``'s [n, chunk] chunks.  On one CUDA
-        device, with direct scatters and float32 tables, the chunk is
-        replayed as a CUDA graph (:class:`ChunkGraph`), captured at the first
-        call and again only when what it bakes in changes (for CTransR also
-        when a profiler starts or stops recording: only a graph captured
-        under one counts); ``kept["graph"]`` holds it between calls.
-        Everywhere else (the CPU, ``scatter_mode="dedup"``, whose duplicate
-        merge waits for the device) the same chunk runs eagerly
+        device, with direct scatters and float32 tables, the chunks run as
+        ``ops/transr_fast.py``'s kernel in place on a fused table and W, where
+        the model's ``chunk_kernels`` allows and the kernel takes the tables
+        and chunk (:func:`kernels_take`); else a chunk is
+        replayed as a CUDA graph (:class:`ChunkGraph`), captured at the
+        first call and again only when what it bakes in changes (for CTransR
+        also when a profiler starts or stops recording: only a graph
+        captured under one counts); ``kept["graph"]`` holds it between
+        calls.  Everywhere else (the CPU, ``scatter_mode="dedup"``, whose
+        duplicate merge waits for the device) the same chunk runs eagerly
         (:meth:`eager_chunks`)."""
-        rows = feed["ph"].shape[1]
+        n, rows = feed["ph"].shape
         keys = ("entity", "relation", *self.chunk_tables, *self.chunk_inputs)
-        replay = (cfg.scatter_mode == "direct" and params["entity"].is_cuda and rows <= self.chunk_size
-                  and all(params[key].dtype == torch.float32 for key in keys))
-        profiling.count("train.chunks", feed["ph"].shape[0])
-        profiling.count("train.chunks_replayed", feed["ph"].shape[0] if replay else 0)
+        kernel = self.chunk_kernels and rows <= self.chunk_size and kernels_take(params, rows, cfg)
+        replay = (not kernel and cfg.scatter_mode == "direct" and params["entity"].is_cuda
+                  and rows <= self.chunk_size and all(params[key].dtype == torch.float32 for key in keys))
+        profiling.count("train.chunks", n)
+        profiling.count("train.chunks_replayed", n if replay else 0)
+        profiling.count("train.chunks_kernel", n if kernel else 0)
+        if kernel:
+            return self.kernel_chunks(params, feed, cfg)
         if not replay:
             return self.eager_chunks(params, feed, cfg)
         kept = {} if kept is None else kept
@@ -205,6 +217,15 @@ class TransR(base.Model):
             graph = ChunkGraph(self, cfg, params, rows, counting)
         kept["graph"] = graph
         return graph.load(params, feed)
+
+    def kernel_chunks(self, params, feed: base.Batch, cfg: EmbeddingConfig) -> transr_fast.FusedChunks:
+        """``ops/transr_fast.py``'s kernel over ``feed``'s chunks, in place
+        on a fused copy of the entity and relation tables and a copy of W,
+        on the card."""
+        return transr_fast.FusedChunks(
+            base.fuse(params), params["proj"].clone(memory_format=torch.contiguous_format), params["entity"].shape[0],
+            feed, learning_rate=cfg.learning_rate, margin=cfg.margin,
+            l1=self.effective_distance(Distance.from_any(cfg.distance)) == Distance.L1)
 
     def eager_chunks(self, params, feed: base.Batch, cfg: EmbeddingConfig) -> base.BatchStepper:
         """:meth:`chunk_update_` a chunk of ``feed``, eagerly, in place on a
@@ -283,6 +304,16 @@ class TransR(base.Model):
         ent = projections.sphere_norm(torch.as_tensor(np.asarray(seed_entity, np.float32), device=dev))
         rel = torch.as_tensor(np.asarray(seed_relation, np.float32), device=dev)
         return {**params, "entity": ent, "relation": rel}
+
+
+def kernels_take(params: base.Params, rows: int, cfg: EmbeddingConfig) -> bool:
+    """Whether :meth:`TransR.stepper` runs ``ops/transr_fast.py``'s kernel
+    for ``params`` and chunks of ``rows`` samples: float32 tables on one CUDA
+    device, direct scatters (the kernel adds duplicates one by one, as
+    ``index_add`` does), and a width and chunk the kernel takes."""
+    ent, rel, proj = params["entity"], params["relation"], params["proj"]
+    return (cfg.scatter_mode == "direct" and ent.device.type == "cuda" and rel.device == proj.device == ent.device
+            and ent.dtype == rel.dtype == proj.dtype == torch.float32 and transr_fast.takes(ent.shape[1], rows))
 
 
 class ChunkGraph:

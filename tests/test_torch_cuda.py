@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card:
 the rank count (K1/K2), the sequential TransE update (K3), the sequential
-TransH update (K4) and the sequential TransR update (K5); TransR's and
-CTransR's fast chunks replayed as a CUDA graph by the epoch runner against
-the same chunks run eagerly; and TransE's fast batch as two kernels
+TransH update (K4) and the sequential TransR update (K5); TransR's (its
+kernel turned off) and CTransR's fast chunks replayed as a CUDA graph by the
+epoch runner against the same chunks run eagerly; and TransE's fast batch as two kernels
 (``ops/transe_fast.py``) against ``fused_table_update`` run eagerly.  K3, K4 and K5 run
 samples that share no row side by side; batches built to stress that
 schedule (a chain of the whole batch, no shared row at all, fewer samples
@@ -734,11 +734,16 @@ def _eager_chunks(model, params, feed, cfg):
     return params, torch.stack(losses).sum()
 
 
-def _graph_case(cuda, distance, scatter_mode="direct", distinct=True):
+def _graph_case(cuda, monkeypatch, distance, scatter_mode="direct", distinct=True, kernel=False):
+    """TransR's chunks on the card.  Without ``kernel`` its kernel is turned
+    off (``chunk_kernels``), as for a model whose chunk the kernel does not
+    take, so that the runner replays the chunk as ChunkGraph."""
     n, n_rel, k, chunk, n_chunks = 300, 40, 16, 32, 5
     cfg = EmbeddingConfig(embedding_size=k, learning_rate=1 / 16, margin=1.0, distance=int(distance),
                           scatter_mode=scatter_mode)
     model = get_model("transr")
+    if not kernel:
+        monkeypatch.setattr(model, "chunk_kernels", False)
     runner = step_lib.EpochRunner(model, cfg, chunk, n_chunks)
     assert runner.chunk == chunk
     return (model, cfg, runner, _dyadic_tables(n, n_rel, k, 11 + int(distance), cuda),
@@ -746,8 +751,8 @@ def _graph_case(cuda, distance, scatter_mode="direct", distinct=True):
 
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
-def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
-    model, cfg, runner, params, feed, n = _graph_case(cuda, distance)
+def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, monkeypatch, distance):
+    model, cfg, runner, params, feed, n = _graph_case(cuda, monkeypatch, distance)
     before = {key: v.clone() for key, v in params.items()}
     got, loss = runner.apply(params, feed, n)
     assert runner.kept.get("graph") is not None
@@ -759,10 +764,10 @@ def test_transr_chunk_graph_equals_the_eager_body_bit_for_bit(cuda, distance):
 
 
 @pytest.mark.parametrize("distance", [Distance.L1, Distance.L2])
-def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda, distance):
+def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda, monkeypatch, distance):
     # Duplicate rows of violating samples: the atomics of index_add may add
     # in another order in the two runs, an ulp apart at most.
-    model, cfg, runner, params, feed, n = _graph_case(cuda, distance, distinct=False)
+    model, cfg, runner, params, feed, n = _graph_case(cuda, monkeypatch, distance, distinct=False)
     got, loss = runner.apply(params, feed, n)
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     for key in params:
@@ -770,10 +775,10 @@ def test_transr_chunk_graph_with_duplicate_valid_rows_equals_the_eager_body(cuda
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
 
 
-def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda):
+def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda, monkeypatch):
     from torch.profiler import ProfilerActivity, profile
 
-    model, cfg, runner, params, feed, n = _graph_case(cuda, Distance.L1)
+    model, cfg, runner, params, feed, n = _graph_case(cuda, monkeypatch, Distance.L1)
     first = {key: v[:1] for key, v in feed.items()}
     profiling.reset()
     try:
@@ -795,10 +800,11 @@ def test_transr_chunk_graph_is_captured_once_and_replays_every_chunk(cuda):
         assert torch.equal(out[key], want[key]), key
 
 
-def test_transr_dedup_runs_eagerly_on_the_card(cuda):
+def test_transr_dedup_runs_eagerly_on_the_card(cuda, monkeypatch):
     from torch.profiler import ProfilerActivity, profile
 
-    model, cfg, runner, params, feed, n = _graph_case(cuda, Distance.L2, scatter_mode="dedup")
+    model, cfg, runner, params, feed, n = _graph_case(cuda, monkeypatch, Distance.L2, scatter_mode="dedup",
+                                                      kernel=True)
     profiling.reset()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -808,6 +814,7 @@ def test_transr_dedup_runs_eagerly_on_the_card(cuda):
         profiling.reset()
     assert runner.kept.get("graph") is None
     assert counters["train.chunks"] == feed["ph"].shape[0] and counters["train.chunks_replayed"] == 0
+    assert counters["train.chunks_kernel"] == 0 and model.chunk_kernels is True
     want, want_loss = _eager_chunks(model, params, feed, cfg)
     for key in params:
         assert torch.equal(got[key], want[key]), key
