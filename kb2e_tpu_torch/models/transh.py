@@ -19,7 +19,8 @@ Reference training semantics reproduced:
 
 Fast mode (``batch_update``, plain torch) applies the orthogonality projector
 to the whole relation table (idempotent where already satisfied) and to the
-batch's touched (entity, w_r) pairs with delta scatter-adds; parity mode
+batch's touched (entity, w_r) pairs with delta scatter-adds, each call inside
+a span ``kb2e.transh.project`` (``utils/profiling.py``); parity mode
 (``sequential_update``) replays the exact sequence through the hand-written
 kernel of ``ops/transh_update.py`` on the card.
 """
@@ -34,7 +35,7 @@ from kb2e_tpu_torch.config import EmbeddingConfig
 from kb2e_tpu_torch.constants import Distance
 from kb2e_tpu_torch.models import base
 from kb2e_tpu_torch.ops import projections, scatter, transh_update
-from kb2e_tpu_torch.utils import prng
+from kb2e_tpu_torch.utils import prng, profiling
 
 
 def _hyperplane_residual(he, te, rv, w):
@@ -114,7 +115,8 @@ class TransH(base.Model):
 
         # Orthogonality r ⊥ w over the whole relation table (no-op where the
         # constraint already holds, so untouched rows are unchanged).
-        rel, w_tab = projections.orthogonality_project(rel, w_tab, lr, cap)
+        with profiling.span("kb2e.transh.project"):
+            rel, w_tab = projections.orthogonality_project(rel, w_tab, lr, cap)
 
         # Orthogonality for the touched (entity, w_r) pairs, scattered back as
         # deltas.  Corruption replaces exactly one entity, so the distinct
@@ -127,7 +129,8 @@ class TransH(base.Model):
         e_idx = torch.cat([ph, pt, corrupted])
         e_rows = ent[e_idx]
         w_rows = w_tab[r].repeat(3, 1)
-        e_new, w_new = projections.orthogonality_project(e_rows, w_rows, lr, cap)
+        with profiling.span("kb2e.transh.project"):
+            e_new, w_new = projections.orthogonality_project(e_rows, w_rows, lr, cap)
         ent = scatter.scatter_add(ent, e_idx, e_new - e_rows, cfg.scatter_mode)
         dw3 = (w_new - w_rows).reshape(3, ph.shape[0], -1).sum(dim=0)
         w_tab = scatter.scatter_add(w_tab, r, dw3, cfg.scatter_mode)

@@ -21,6 +21,8 @@ from typing import Tuple
 
 import torch
 
+from kb2e_tpu_torch.utils import profiling
+
 
 def row_norms(x: torch.Tensor, dim: int = -1, keepdim: bool = True) -> torch.Tensor:
     # Accumulate in float32 even for low-precision tables (bf16 squares lose
@@ -63,10 +65,16 @@ def orthogonality_project(
     Rows run together under masks.  The loop leaves early when no row is
     active, which costs one host sync a trip; most rows converge at the first
     check, so that is cheaper than ``max_iters`` masked trips.
+
+    While a profiler records (``utils/profiling.py``) a call adds 1 to the
+    counter ``transh.project_calls``, its trips (one host sync each) to
+    ``transh.project_syncs``, and on the device the rows still firing when
+    the cap stops the loop to ``transh.project_capped``.
     """
     b = sphere_norm(b)
     s = torch.zeros(b.shape[:-1] + (1,), dtype=b.dtype, device=b.device)
     active = torch.ones_like(s, dtype=torch.bool)
+    trips = 0
     for _ in range(max_iters):
         s_new = torch.sqrt(s + torch.sum(b * b, dim=-1, keepdim=True))
         b_scaled = b / s_new
@@ -77,6 +85,11 @@ def orthogonality_project(
         b = torch.where(active, b_next, b)
         s = torch.where(active, s_new, s)
         active = active & fire
+        trips += 1
         if not bool(active.any()):
             break
+    profiling.count("transh.project_calls", 1)
+    profiling.count("transh.project_syncs", trips)
+    if profiling.recording():
+        profiling.count_device("transh.project_capped", active.sum())
     return a, sphere_norm(b)

@@ -4,6 +4,7 @@ layers that carry them, and the benchmark's readers of them.
 Spans record only under ``torch.profiler``; these tests run it on the CPU.
 """
 
+import collections
 import contextlib
 import importlib.util
 import io
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from kb2e_tpu_torch import EmbeddingConfig, get_model
 from kb2e_tpu_torch.cli import eval_transe, train_transe
@@ -228,9 +230,10 @@ EVAL_SNAPSHOT = {
 }
 TRAIN_SNAPSHOT = {
     "spans": {"kb2e.train.sample": _span(4, 0.01), "kb2e.train.apply": _span(4, 0.3),
-              "kb2e.train.batch": _span(400, 0.28)},
+              "kb2e.train.batch": _span(400, 0.28), "kb2e.transh.project": _span(800, 0.2)},
     "counters": {"sampler.slots": 20000, "sampler.retried": 13, "train.chunks": 400, "train.chunks_replayed": 300,
-                 "ctransr.routed": 19000, "ctransr.routed_top": 6650},
+                 "ctransr.routed": 19000, "ctransr.routed_top": 6650, "transh.project_calls": 800,
+                 "transh.project_syncs": 1000, "transh.project_capped": 3},
 }
 
 
@@ -245,6 +248,8 @@ TRAIN_SNAPSHOT = {
     ("train.sampler_retry_share", TRAIN_SNAPSHOT, 0.065),
     ("train.chunk_graph_share", TRAIN_SNAPSHOT, 75.0),
     ("train.cluster_top_share", TRAIN_SNAPSHOT, 35.0),
+    ("train.projector_ms", TRAIN_SNAPSHOT, 50.0),
+    ("train.projector_syncs_per_batch", TRAIN_SNAPSHOT, 2.5),
 ])
 def test_each_reader_reads_its_number_and_none_without_a_root_span(monkeypatch, metric, snap, want):
     reader = _reader(metric)
@@ -260,6 +265,72 @@ def test_each_reader_reads_its_number_and_none_without_a_root_span(monkeypatch, 
     # A program without the registry (the parent of this change) reads as nothing.
     monkeypatch.delattr(profiling, "snapshot")
     assert reader.read(None) is None
+
+
+@pytest.mark.parametrize("metric", ["train.projector_ms", "train.projector_syncs_per_batch"])
+def test_the_projector_readers_read_nothing_without_its_span_or_counters(monkeypatch, metric):
+    # The parent of the projector's spans: an epoch's spans and counters, none of TransH's projector.
+    parent = {"spans": {k: v for k, v in TRAIN_SNAPSHOT["spans"].items() if k != "kb2e.transh.project"},
+              "counters": {k: v for k, v in TRAIN_SNAPSHOT["counters"].items() if not k.startswith("transh.")}}
+    monkeypatch.setattr(profiling, "snapshot", lambda: parent)
+    assert _reader(metric).read(None) is None
+    entry = {m["name"]: m for m in json.loads((REPO / "BENCHMARK.json").read_text())["per_layer"]}[metric]
+    assert entry["workloads"] == ["transh-fb15k.train"] and entry["better"] == "lower"
+
+
+def _transh_batch():
+    """TransH's model, tables, one batch and a config whose rate makes the projector fire."""
+    from portbench.reference import transh
+
+    n, n_rel, k, b = 64, 8, 16, 40
+    tables = transh.init_tables(torch.Generator().manual_seed(1), n, n_rel, k, "train")
+    g = torch.Generator().manual_seed(2)
+    batch = {key: torch.randint(0, n_rel if key == "r" else n, (b,), generator=g, dtype=torch.int32)
+             for key in ("ph", "pt", "r", "nt")}
+    batch["nh"], batch["valid"] = batch["ph"].clone(), torch.ones(b, dtype=torch.bool)
+    return get_model("transh"), tables, batch, EmbeddingConfig(embedding_size=k, learning_rate=0.05)
+
+
+def test_a_transh_batch_counts_two_projector_calls_and_a_sync_a_trip(monkeypatch):
+    model, tables, batch, cfg = _transh_batch()
+    syncs = []
+    as_bool = torch.Tensor.__bool__
+    monkeypatch.setattr(torch.Tensor, "__bool__", lambda t: syncs.append(1) or as_bool(t))
+    with _recording():
+        model.batch_update(tables, batch, cfg)
+    monkeypatch.undo()
+    snap = profiling.snapshot()
+    assert snap["spans"]["kb2e.transh.project"]["count"] == 2
+    counters = snap["counters"]
+    assert counters["transh.project_calls"] == 2 and counters["transh.project_syncs"] == len(syncs) > 2
+    assert counters["transh.project_capped"] == 0
+
+
+class _Ops(TorchDispatchMode):
+    """Counts the operators dispatched while it is open."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_with_tracing_off_the_projector_counts_nothing_and_adds_no_operator():
+    model, tables, batch, cfg = _transh_batch()
+    with _Ops() as off:
+        model.batch_update(tables, batch, cfg)
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    with _recording():
+        with _Ops() as on:
+            model.batch_update(tables, batch, cfg)
+    assert not off.ops - on.ops
+    # Recording adds only the capped counter's sum (one a call) and its copy
+    # and add into the registry, beside the profiler's own annotations.
+    extra = {name: n for name, n in (on.ops - off.ops).items() if name.startswith("aten.")}
+    assert extra["aten.sum"] == 2 and set(extra) <= {"aten.sum", "aten.detach", "aten._to_copy", "aten.add_"}
 
 
 def test_eval_cli_profile_dir_traces_the_pass(tiny_kg_dir, tmp_path):
